@@ -16,7 +16,9 @@ import torch
 
 from . import build
 
-MAX_D = 256  # 8 values a lane in a warp of 32
+# Two carry rows of one warp in an H100 block's 227 KB of shared memory
+# (kMaxD of csrc/sgm_directional.cu).
+MAX_D = 29056
 
 # Kernel launches since the last reset (a plain count; the CPU path does not
 # add to it).

@@ -1,3 +1,3 @@
-from . import rendered
+from . import rendered, synthetic
 
-__all__ = ["rendered"]
+__all__ = ["rendered", "synthetic"]

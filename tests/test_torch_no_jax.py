@@ -15,6 +15,10 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 import alicevision_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+wanted = {"geometry.rotations", "geometry.pose", "camera.models", "utils.synthetic",
+          "sfm.ba", "sfm.local_ba", "numeric", "convert", "ops.sgm_kernel"}
+missing = wanted - {n.split(".", 1)[1] for n in names}
+assert not missing, missing
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -20,10 +20,10 @@ from alicevision_tpu_torch.ops import sgm_kernel
 torch.set_num_threads(1)
 
 # tests/test_pallas_sgm.py's shapes (the second ragged in N and D) plus the
-# path's D = 256. Tolerance as there: rtol 1e-5, atol 1e-3 on costs of a few
-# hundred — the recurrence is min/add only, so the versions agree to float32
-# rounding of the same operations.
-SHAPES = [(12, 16, 128), (7, 13, 100), (5, 9, 256)]
+# path's D = 256 and a D past 256 (ragged). Tolerance as there: rtol 1e-5,
+# atol 1e-3 on costs of a few hundred — the recurrence is min/add only, so
+# the versions agree to float32 rounding of the same operations.
+SHAPES = [(12, 16, 128), (7, 13, 100), (5, 9, 256), (4, 6, 301)]
 P1 = 10.0
 
 
@@ -122,3 +122,15 @@ def test_kernel_matches_plain_version(cuda_device):
         assert sgm_kernel.launches == before + 1
         ref = tps._directional_pass(c, q, P1)
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 7, 257), (6, 9, 512), (4, 6, 1500), (5, 7, 1001)])
+def test_kernel_matches_plain_version_past_256(cuda_device, shape):
+    """Three and four register chunks, then the carry in shared memory."""
+    cost, p2 = _inputs(shape, 6)
+    c = torch.from_numpy(cost).to(cuda_device)
+    q = torch.from_numpy(p2).to(cuda_device)
+    out = sgm_kernel.sgm_directional_pass(c, q, P1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, tps._directional_pass(c, q, P1), rtol=1e-5, atol=1e-3)
