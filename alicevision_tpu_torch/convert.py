@@ -1,10 +1,11 @@
 """Carry state over from the JAX package without importing it.
 
 The reference package hands its state across as plain Python and numpy:
-`SgmParams._asdict()` for the sweep parameters,
+`SgmParams._asdict()` / `SiftConfig._asdict()` for parameters,
 `dataclasses.asdict(scene)` for an `SfMData` (numpy arrays, lists, dicts),
-and a `BAProblem` whose leaves went through `np.asarray`. These functions
-build the port's counterparts from such values. The `.sfm` file is the
+a `BAProblem` whose leaves went through `np.asarray`, and a `VocTree`
+whose centers do. These functions build the port's counterparts from such
+values. The `.sfm` file is the
 other carrier: a file that either package writes loads in the other.
 """
 
@@ -18,6 +19,8 @@ import torch
 
 from .camera import Intrinsics
 from .device import resolve_device
+from .features.sift import SiftConfig
+from .matching.voctree import VocTree
 from .mvs.plane_sweep import SgmParams
 from .sfm.ba import BAProblem
 from .sfmdata.scene import SfMData
@@ -29,6 +32,29 @@ def sgm_params_from_reference(fields: dict) -> SgmParams:
     if unknown:
         raise ValueError(f"unknown SgmParams fields: {sorted(unknown)}")
     return SgmParams(**fields)
+
+
+def sift_config_from_reference(fields: dict) -> SiftConfig:
+    """SiftConfig from the reference's `SiftConfig._asdict()`."""
+    unknown = set(fields) - set(SiftConfig._fields)
+    if unknown:
+        raise ValueError(f"unknown SiftConfig fields: {sorted(unknown)}")
+    return SiftConfig(**fields)
+
+
+def voctree_from_numpy(tree, device="cuda") -> VocTree:
+    """The port's VocTree from the reference's (any object with `centers`,
+    which `np.asarray` takes, `n_children` and `n_levels`): the
+    (n_levels, max_nodes, D) centers copied onto `device` as float32."""
+    centers = np.array(tree.centers, dtype=np.float32, copy=True)
+    n_children, n_levels = int(tree.n_children), int(tree.n_levels)
+    if centers.ndim != 3 or centers.shape[0] != n_levels or centers.shape[1] < n_children**n_levels:
+        raise ValueError(f"centers {centers.shape} do not hold {n_levels} levels of {n_children}^l nodes")
+    return VocTree(
+        centers=torch.from_numpy(centers).to(resolve_device(device)),
+        n_children=n_children,
+        n_levels=n_levels,
+    )
 
 
 def scene_from_reference(fields: dict) -> SfMData:

@@ -1,4 +1,5 @@
-"""Image filtering primitives: separable Gaussian blur and bilinear sampling.
+"""Image filtering primitives: separable Gaussian blur, gradients,
+resampling and bilinear sampling.
 
 Port of `alicevision_tpu/image/filtering.py`. Both blurs are one
 formulation here: two banded matrix products, out = B_H @ img @ B_W^T, where
@@ -62,6 +63,65 @@ def gaussian_blur_mm(img: torch.Tensor, sigma: float, radius: int | None = None)
 
 # One formulation serves both of the reference's blurs (see module note).
 gaussian_blur = gaussian_blur_mm
+
+
+def downsample2(img: torch.Tensor) -> torch.Tensor:
+    """Decimate by 2 (every other pixel), matching scale-space conventions."""
+    return img[..., ::2, ::2]
+
+
+def upsample2(img: torch.Tensor) -> torch.Tensor:
+    """Bilinear 2x upsample of (..., H, W). `jax.image.resize`'s bilinear
+    drops the weight of taps outside the image and renormalizes, which at
+    2x is the edge replication of half-pixel-centred interpolation."""
+    h, w = img.shape[-2], img.shape[-1]
+    x = img.reshape((-1, 1, h, w))
+    out = torch.nn.functional.interpolate(x, size=(2 * h, 2 * w), mode="bilinear", align_corners=False)
+    return out.reshape(img.shape[:-2] + (2 * h, 2 * w))
+
+
+def gradients(img: torch.Tensor):
+    """Central-difference gradients (gx, gy) on (..., H, W), wrapping at the
+    borders as the reference's roll does."""
+    gx = 0.5 * (torch.roll(img, -1, dims=-1) - torch.roll(img, 1, dims=-1))
+    gy = 0.5 * (torch.roll(img, -1, dims=-2) - torch.roll(img, 1, dims=-2))
+    return gx, gy
+
+
+@functools.lru_cache(maxsize=16)
+def _linear_taps(n_in: int, n_out: int, device: torch.device):
+    """Source taps and weights of OpenCV's INTER_LINEAR along one axis:
+    src = (dst + 0.5) * n_in / n_out - 0.5 in float64, cast to float32 as
+    OpenCV does, then floor; a tap left of 0 or right of n_in - 1 clamps
+    to the edge with weight 0 on its neighbour. Cached per device, so a
+    resize of a size seen before copies nothing to the device."""
+    scale = 1.0 / (n_out / n_in)
+    f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    w1 = (f - i0).astype(np.float32)
+    low = i0 < 0
+    i0[low], w1[low] = 0, 0.0
+    high = i0 >= n_in - 1
+    i0[high], w1[high] = n_in - 1, 0.0
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    return tuple(torch.from_numpy(a).to(device) for a in (i0, i1, 1.0 - w1, w1))
+
+
+def _resize_bilinear(img: torch.Tensor, size_wh) -> torch.Tensor:
+    """`cv2.resize(img, (w, h))` with INTER_LINEAR on float32 (..., H, W):
+    rows first, then columns, with float32 weights (OpenCV's order). For an
+    exact 2x downscale OpenCV swaps in INTER_AREA, the mean of each 2x2
+    block, and so does this."""
+    w, h = int(size_wh[0]), int(size_wh[1])
+    H, W = img.shape[-2], img.shape[-1]
+    if 2 * w == W and 2 * h == H:
+        a, b = img[..., 0::2, 0::2], img[..., 0::2, 1::2]
+        c, d = img[..., 1::2, 0::2], img[..., 1::2, 1::2]
+        return (a + b + c + d) * 0.25
+    x0, x1, ax0, ax1 = _linear_taps(W, w, img.device)
+    y0, y1, ay0, ay1 = _linear_taps(H, h, img.device)
+    rows = img.index_select(-1, x0) * ax0 + img.index_select(-1, x1) * ax1
+    return rows.index_select(-2, y0) * ay0[:, None] + rows.index_select(-2, y1) * ay1[:, None]
 
 
 def bilinear_sample(img: torch.Tensor, xy: torch.Tensor, fill: float = 0.0) -> torch.Tensor:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's dense depth-map path and its bundle
-adjuster once on one GPU.
+"""Drive the PyTorch/CUDA port's dense depth-map path, its SfM front end and
+its bundle adjuster once on one GPU.
 
     python3 chip_smoke.py
 
@@ -12,8 +12,9 @@ toolkit (`nvcc`). It
 3. holds the SGM kernel against its plain PyTorch version on the card at
    the reference's test shapes, ragged ones, D past 256 (257, 512, 1500:
    more register chunks, then the carry in shared memory) and the two
-   shapes of the dense path, and times both at the latter (and at D = 512
-   and 1500) with CUDA events beside the bandwidth bound;
+   shapes of the dense path, and times both at the latter (and at D = 96,
+   the JAX runner's default, and at D = 512 and 1500) with CUDA events
+   beside the bandwidth bound;
 4. renders a posed 8-view 1280x960 scene, writes it as `.npy` images plus a
    pinhole `.sfm`, and runs the port's four dense stages on it
    (prepareDenseScene -> depthMapEstimation at 640x480, D = 256, T = 4 ->
@@ -21,18 +22,25 @@ toolkit (`nvcc`). It
    checking that every SGM sweep of the path went through the kernel and
    that the depth maps meet the floors of tests/test_golden_mvs.py against
    the rendered ground truth;
-5. runs the bundle adjuster (`sfm/ba.py`) at the two problem sizes of
+5. runs the port's SfM front end on the same images (cameraInit ->
+   featureExtraction at the runner's 4096 keypoints, resized to 1024x768 ->
+   exhaustive imageMatching -> featureMatching with AC-RANSAC F), twice,
+   timing the second (warm) run, and checks the keypoints per view, the
+   inliers of each adjacent pair, the inliers' Sampson distance to the
+   rendered poses' true epipolar geometry, and view 1's features on the
+   CPU against the card's;
+6. runs the bundle adjuster (`sfm/ba.py`) at the two problem sizes of
    bench.py — 100 cameras / 10k landmarks through the dense Schur solve and
    1024 cameras / 300k landmarks through matrix-free PCG — timing LM
    iterations per second and checking convergence, then solves a mid-size
    problem on the CPU and on the card and holds the two results together;
-6. prints a `ba` and a `kernels` JSON line and, last,
+7. prints a `front`, a `ba` and a `kernels` JSON line and, last,
    `{"ok": true, "device": ...}`.
 
 Every failed check raises, so the script exits non-zero and prints no result.
-It needs a CUDA device; `make_posed_scene`, `run_main_path` and the BA
-problem builders also run on the CPU at small sizes (the port's tests call
-them so).
+It needs a CUDA device; `make_posed_scene`, `run_main_path`, `run_front`,
+`front_report` and the BA problem builders also run on the CPU at small
+sizes (the port's tests call them so).
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ from alicevision_tpu_torch import sfmdata
 from alicevision_tpu_torch.geometry import mat_to_quat, quat_to_mat
 from alicevision_tpu_torch.mvs.plane_sweep import _directional_pass
 from alicevision_tpu_torch.ops import build, sgm_kernel
+from alicevision_tpu_torch.features import sift
+from alicevision_tpu_torch.image.filtering import _resize_bilinear
 from alicevision_tpu_torch.pipeline import stages
 from alicevision_tpu_torch.sfm import ba
 from alicevision_tpu_torch.utils.rendered import render_views, sample_surface_points
@@ -66,14 +76,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # load path, two chunks) and D = 1; D past 256 (three and four register
 # chunks, then the shared-memory carry, vector and scalar loads, up to the
 # reference's default of 1500 planes); then the two sweeps of one 640x480
-# depth map at D = 256: horizontal (W, 2H, D) and vertical (H, 2W, D), and
+# depth map at D = 256: horizontal (W, 2H, D) and vertical (H, 2W, D); the
+# same two at D = 96 (the JAX runner's default, one register chunk); and
 # the horizontal sweep at D = 512 and 1500.
 PATH_SHAPES = [(640, 960, 256), (480, 1280, 256)]
+D96_SHAPES = [(640, 960, 96), (480, 1280, 96)]
 WIDE_SHAPES = [(640, 960, 512), (640, 960, 1500)]
+TIMED_SHAPES = PATH_SHAPES + D96_SHAPES + WIDE_SHAPES
 KERNEL_SHAPES = (
     [(7, 13, 100), (12, 16, 256), (9, 11, 131), (4, 5, 1)]
     + [(5, 7, 257), (6, 9, 512), (4, 6, 1500), (5, 7, 1001)]
-    + PATH_SHAPES + WIDE_SHAPES
+    + TIMED_SHAPES
 )
 ATOL, RTOL = 1e-3, 1e-5  # tests/test_pallas_sgm.py; 0 difference expected
 P1 = 10.0
@@ -221,7 +234,7 @@ def check_sgm_kernel(dev) -> list:
         err = float((out - ref).abs().max())
         torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
         row = {"shape": [S, N, D], "max_abs_diff": err}
-        if (S, N, D) in PATH_SHAPES + WIDE_SHAPES:
+        if (S, N, D) in TIMED_SHAPES:
             n_bytes = (2 * S * N * D + S * N) * 4
             n_ops = SGM_OPS_PER_ELEMENT * S * N * D
             bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -236,6 +249,187 @@ def check_sgm_kernel(dev) -> list:
         del cost, p2, out, ref
         rows.append(row)
     return rows
+
+
+# ------------------------------------------------------------ front end
+
+# Checks of the front-end phase. The keypoint floor is set from a CPU run of
+# the port on the same rendered scene (177-231 valid keypoints a view of
+# the 4096 allowed: the box world's procedural texture is smooth, so few
+# DoG extrema pass the contrast threshold); the CPU run found 94-135
+# geometric inliers an adjacent pair. CPU and card extract view 1 from the
+# same resized image; float32 sums in another order move a sub-pixel
+# refinement by ~1e-4 px. The epipolar check measures the Sampson distance to the true
+# geometry: of the CPU run's inliers, 97.7 % lie within 2 px by it (94.5 %
+# by the one-sided point-to-line distance: ~5 % are mismatches of the
+# repetitive texture that lie along the epipolar line, within the 4 px
+# band, which no F filter can reject).
+FRONT_MAX_KEYPOINTS = 4096  # the runner's (pipeline/runner.py)
+FRONT_MIN_KEYPOINTS = 150
+FRONT_MIN_INLIERS = 50
+FRONT_EPI_PX, FRONT_EPI_FRAC = 2.0, 0.95
+FRONT_CPU_CARD_PX, FRONT_CPU_CARD_FRAC, FRONT_CPU_CARD_DESC = 0.05, 0.95, 1e-3
+
+
+def run_front(work: str, image_folder: str, device, focal_px: float = 1120.0,
+              max_keypoints: int = FRONT_MAX_KEYPOINTS, downscale_to: int = 1024):
+    """The port's four front stages on the images of `image_folder`,
+    writing under `work`. Returns the output paths, each stage's seconds and
+    the number of describer batches featureExtraction copied back."""
+    out = {
+        "sfm": os.path.join(work, "cameraInit.sfm"),
+        "feats": os.path.join(work, "features"),
+        "pairs": os.path.join(work, "pairs.txt"),
+        "matches": os.path.join(work, "matches.npz"),
+    }
+    os.makedirs(work, exist_ok=True)
+    seconds = {}
+    cuda = torch.device(device).type == "cuda"
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return res
+
+    timed("cameraInit", stages.camera_init, image_folder, out["sfm"], default_focal_px=focal_px,
+          device=device)
+    timed("featureExtraction", stages.feature_extraction, out["sfm"], out["feats"],
+          max_keypoints=max_keypoints, downscale_to=downscale_to, device=device)
+    out["extraction_batches"] = stages.extraction_host_copies
+    timed("imageMatching", stages.image_matching, out["sfm"], out["feats"], out["pairs"],
+          method="exhaustive", device=device)
+    timed("featureMatching", stages.feature_matching, out["sfm"], out["feats"], out["pairs"],
+          out["matches"], ratio=0.8, n_ransac_hyps=256, max_error_px=4.0, device=device)
+    out["seconds"] = seconds
+    return out
+
+
+def fundamental_true(posed_sfm: str, i: int, j: int) -> np.ndarray:
+    """F between views i and j of a posed scene in the images' pixel-array
+    coordinates (the principal point of the `.sfm` includes the renderer's
+    -0.5 px offset, as make_posed_scene writes it)."""
+    sc = sfmdata.load(posed_sfm)
+    k = int(sc.view_intrinsic[i])
+    f = sc.scale[k]
+    pp = sc.offset[k] + 0.5 * sc.sizes[k]
+    Kinv = np.linalg.inv(np.array([[f[0], 0, pp[0]], [0, f[1], pp[1]], [0, 0, 1.0]]))
+    Ri, Rj = sc.pose_R[int(sc.view_pose[i])], sc.pose_R[int(sc.view_pose[j])]
+    ci, cj = sc.pose_c[int(sc.view_pose[i])], sc.pose_c[int(sc.view_pose[j])]
+    R = Rj @ Ri.T
+    t = Rj @ (ci - cj)
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    return Kinv.T @ tx @ R @ Kinv
+
+
+def epipolar_px(F: np.ndarray, x1: np.ndarray, x2: np.ndarray) -> np.ndarray:
+    """Symmetric (Sampson) epipolar distance of each correspondence under F,
+    pixels: the residual AC-RANSAC scores (`multiview.epipolar_distance_sq`),
+    in float64. One-sided point-to-line distances are about sqrt(2) times
+    larger."""
+    p1 = np.c_[x1, np.ones(len(x1))]
+    p2 = np.c_[x2, np.ones(len(x2))]
+    Fp1 = p1 @ F.T
+    Ftp2 = p2 @ F
+    num = np.sum(p2 * Fp1, 1) ** 2
+    den = Fp1[:, 0] ** 2 + Fp1[:, 1] ** 2 + Ftp2[:, 0] ** 2 + Ftp2[:, 1] ** 2
+    return np.sqrt(num / den)
+
+
+def front_report(res: dict, posed_sfm: str, n_views: int) -> dict:
+    """Keypoints per view, geometric inliers per pair, and their Sampson
+    distances to the true epipolar geometry."""
+    feats = [stages.load_features(res["feats"], v + 1) for v in range(n_views)]
+    matches = stages.load_matches(res["matches"])
+    dists = []
+    inliers = {}
+    for (i, j), pm in sorted(matches.items()):
+        inliers[f"{i}_{j}"] = len(pm)
+        if len(pm):
+            F = fundamental_true(posed_sfm, i, j)
+            dists.append(epipolar_px(F, feats[i]["xy"][pm[:, 0]], feats[j]["xy"][pm[:, 1]]))
+    d = np.concatenate(dists) if dists else np.zeros(0)
+    return {
+        "keypoints_per_view": [int(f["valid"].sum()) for f in feats],
+        "inliers_per_pair": inliers,
+        "adjacent_inliers": [inliers.get(f"{v}_{v + 1}", 0) for v in range(n_views - 1)],
+        "inliers_total": int(len(d)),
+        "frac_within_2px_of_true_epipolar": float((d < FRONT_EPI_PX).mean()) if len(d) else 0.0,
+        "median_sampson_px": float(np.median(d)) if len(d) else None,
+    }
+
+
+def compare_cpu_card(img: np.ndarray, dev, downscale_to: int = 1024) -> dict:
+    """One view extracted on the CPU and on the card from the same image,
+    resized as featureExtraction resizes it: the share of the CPU's valid
+    keypoints with a card keypoint within FRONT_CPU_CARD_PX at the same
+    orientation, and the largest descriptor difference among those."""
+    cfg = sift.SiftConfig(max_keypoints=FRONT_MAX_KEYPOINTS, n_octaves=4)
+    s = downscale_to / max(img.shape)
+    size = (int(img.shape[1] * s), int(img.shape[0] * s))
+    out = []
+    for d in ("cpu", dev):
+        x = _resize_bilinear(torch.from_numpy(img).to(d), size)
+        f = sift.extract(x, cfg)
+        out.append({k: getattr(f, k).cpu().numpy() for k in ("xy", "orientation", "desc", "valid")})
+    a, b = out
+    va, vb = a["valid"], b["valid"]
+    dxy = np.linalg.norm(a["xy"][va][:, None] - b["xy"][vb][None], axis=-1)
+    near, dist = dxy.argmin(1), dxy.min(1)
+    dori = np.abs(np.angle(np.exp(1j * (b["orientation"][vb][near] - a["orientation"][va]))))
+    same = (dist < FRONT_CPU_CARD_PX) & (dori < 1e-3)
+    ddesc = np.abs(b["desc"][vb][near] - a["desc"][va])[same]
+    return {
+        "keypoints_cpu": int(va.sum()), "keypoints_card": int(vb.sum()),
+        "frac_matched": float(same.mean()) if len(same) else 0.0,
+        "max_xy_diff_matched": float(dist[same].max()) if same.any() else None,
+        "max_desc_diff_matched": float(ddesc.max()) if ddesc.size else None,
+    }
+
+
+def check_front(dev, work: str, image_folder: str, posed_sfm: str, n_views: int) -> dict:
+    """The front-end phase: a cold run, then a warm run timed and checked,
+    featureExtraction once more with its host syncs counted, then view 1 on
+    the CPU against the card."""
+    cold = run_front(os.path.join(work, "front_cold"), image_folder, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = run_front(os.path.join(work, "front"), image_folder, dev)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    _, syncs = _count_syncs(lambda: stages.feature_extraction(
+        res["sfm"], os.path.join(work, "front_syncs"), max_keypoints=FRONT_MAX_KEYPOINTS, device=dev))
+    batches = stages.extraction_host_copies
+    rep = front_report(res, posed_sfm, n_views)
+    cmp = compare_cpu_card(np.load(os.path.join(image_folder, "1.npy")), dev)
+    row = {
+        "stage_seconds_warm": res["seconds"],
+        "stage_seconds_cold": cold["seconds"],
+        "extraction_batches": batches,
+        "extraction_host_syncs": syncs,
+        "extraction_host_syncs_per_batch": syncs / max(batches, 1),
+        "peak_device_gib": peak_gib,
+        **rep,
+        "cpu_vs_card_view1": cmp,
+    }
+    print("front " + json.dumps(row), flush=True)
+    bad = []
+    if min(rep["keypoints_per_view"]) < FRONT_MIN_KEYPOINTS:
+        bad.append(f"keypoints per view {rep['keypoints_per_view']} below {FRONT_MIN_KEYPOINTS}")
+    if min(rep["adjacent_inliers"]) < FRONT_MIN_INLIERS:
+        bad.append(f"adjacent-pair inliers {rep['adjacent_inliers']} below {FRONT_MIN_INLIERS}")
+    if rep["frac_within_2px_of_true_epipolar"] < FRONT_EPI_FRAC:
+        bad.append(f"{rep['frac_within_2px_of_true_epipolar']:.3f} of the inliers within "
+                   f"{FRONT_EPI_PX} px (Sampson) of the true epipolar geometry, expected {FRONT_EPI_FRAC}")
+    if cmp["frac_matched"] < FRONT_CPU_CARD_FRAC or not (
+            cmp["max_desc_diff_matched"] is not None and cmp["max_desc_diff_matched"] < FRONT_CPU_CARD_DESC):
+        bad.append(f"view 1 on the card disagrees with the CPU: {cmp}")
+    if len(pairs := stages.load_pairs(res["pairs"])) != n_views * (n_views - 1) // 2:
+        bad.append(f"imageMatching gave {len(pairs)} pairs")
+    if bad:
+        raise RuntimeError("front end: " + "; ".join(bad))
+    return row
 
 # ------------------------------------------------------------------- BA
 
@@ -508,13 +702,17 @@ def main() -> int:
         print(f"cloud.ply: {n_ply} points", flush=True)
         if n_ply != res["n_points"] or n_ply <= 5000:
             raise RuntimeError(f"cloud.ply holds {n_ply} points, expected more than 5000")
+
+        # 5. the SfM front end on the same images
+        front = check_front(dev, work, os.path.join(work, "images"), sfm, n_views)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 5. the bundle adjuster
+    # 6. the bundle adjuster
     ba_rows = check_ba(dev)
 
-    # 6. results
+    # 7. results
+    print(json.dumps({"front": front}), flush=True)
     print(json.dumps({"ba": ba_rows}), flush=True)
     path_rows = [r for r in rows if tuple(r["shape"]) in PATH_SHAPES]
     kernel_ms = sum(r["kernel_ms"] for r in path_rows)  # one depth map's two sweeps
