@@ -1,51 +1,64 @@
-// One forward SGM directional sweep on Hopper (sm_90a).
+// SGM directional sweeps on Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel alicevision_tpu/ops/sgm_pallas.py
-// (sgm_directional_pass, body _sgm_kernel_const). Computes, over a cost
-// volume C of shape (S, N, D) (D innermost, contiguous) with a per-position
-// P2 of shape (S, N) and a constant P1:
+// (sgm_directional_pass, body _sgm_kernel_const). One launch runs B*N
+// independent chains of S steps. Chain (b, n) at step s reads the D costs
+// C_s at cost + b*c_b + n*c_n + s*c_s (D innermost, stride 1) and the
+// scalar P2_s at p2 + b*p_b + n*p_n + s*p_s, with a constant P1:
 //
 //   L_0 = C_0
 //   L_s = (C_s + min(L_{s-1}, min(L_{s-1}[d-1], L_{s-1}[d+1]) + P1,
-//                    min_d L_{s-1} + P2[s])) - min_d L_{s-1}      (s >= 1)
+//                    min_d L_{s-1} + P2_s)) - min_d L_{s-1}      (s >= 1)
 //
-// with the d-neighbours edge-replicated (d = 0 and d = D-1 use their own
-// value), the arithmetic order of the plain version in
-// alicevision_tpu_torch/mvs/plane_sweep.py::_directional_pass, so the two
-// agree bit for bit.
+// with the d-neighbours edge-replicated, in the arithmetic order of the
+// plain version (alicevision_tpu_torch/mvs/plane_sweep.py::_directional_pass),
+// so the two agree bit for bit. L_s goes to out (which shares cost's
+// strides), or is added to what out holds (`accumulate`: out = out + L_s,
+// the order of sgm_aggregate's running sum). A negative step stride walks a
+// chain backwards, so the opposite-direction sweeps of sgm_aggregate need
+// no flipped copy (ops/sgm_kernel.py computes the strides).
 //
 // What bounds it on an H100: bytes. Each cost value is read once, each
-// result written once, and P2 read once: (2*S*N*D + S*N) * 4 bytes against
-// about 7 float operations per element. On the dense path's 640x480 maps
-// with D = 256 the two launches per depth map are (640, 960, 256) and
-// (480, 1280, 256), about 1.26 GB each, about 0.38 ms at 3.35 TB/s.
+// result written once (read and written when accumulating), P2 read once:
+// (2 or 3)*B*S*N*D*4 + B*S*N*4 bytes against ~7 float operations an
+// element. A (640, 960, 96) sweep moves 474 MB, 0.142 ms at 3.35 TB/s.
 //
-// Design (simple first): one warp owns one row n for the whole sweep; the
-// loop over s runs inside the kernel. Two variants, chosen by D:
+// What held the first design back: latency. One warp owned one
+// chain and prefetched one step ahead into registers; each step waited on
+// a five-level shuffle min and then on its loads. It reached 35-44 % of the
+// bound at D = 96 (a quarter of the lanes idle), 65-75 % at D = 256-512,
+// and 37 % with the shared-memory carry, which had no prefetch at all.
 //
-// * D <= 512: the carry L_{s-1} stays in registers. D is spread over the 32
-//   lanes in chunks of 128: lane l holds d = 128 k + 4 l + j (j = 0..3) of
-//   chunk k (1 to 4 chunks), so each chunk is one coalesced 512-byte read or
-//   write (float4 per lane when D % 4 == 0). min_d is a warp-shuffle
-//   reduction; the neighbours d +- 1 come from the lane's own registers plus
-//   one shuffle at each 4-value border and one at the chunk border. Lanes
-//   past D hold +inf, so they never win the min. The next row's cost and P2
-//   are loaded before the current step's reduction.
-// * D > 512 (the reference's default is 1500 planes): the carry lives in
-//   shared memory, two rows a warp (the previous and the next, swapped each
-//   step; 12 KB a warp at D = 1500), walked in the same 128-wide chunks.
-//   min_d of the new row is taken while it is written, so each step reads
-//   the carry once. Up to kMaxD = 29056 (two rows a warp in 227 KB).
+// This design:
+// * An asynchronous ring in shared memory, per warp: each step's cost row
+//   (with the running total's row when accumulating, and P2) is copied
+//   with cp.async (16-byte pieces when D % 4 == 0 and the rows are
+//   16-byte aligned, 4-byte ones otherwise), one commit group a step,
+//   K steps ahead (K = 8 up to D = 192, 6 at 256, 3 at 512: 3-6 KB of cost
+//   rows a warp, 3-5 MB across a launch of 960 chains).
+// * The carry L_{s-1} in registers for D <= 512: lane l holds d = l + 32 j
+//   (j < VPL), so D = 96 fills all 32 lanes with 3 values. VPL is
+//   ceil(D / 32) rounded up to a rung of 1, 2, 3, 4, 6, 8, 12, 16 (the
+//   values past D hold +inf), so 32 instantiations cover D <= 512.
+//   One chain a warp (32 x 3, not two chains of 16 x 6) keeps each warp's
+//   stores whole 128-byte lines and lets min_d be one redux.sync over
+//   order-preserving integer keys (the step's only serial reduction). The
+//   neighbours d +- 1 (one shuffle a value), the next copies and the next
+//   step's loads from the ring are issued while that reduction is in flight.
+// * Past D = 512 the carry lives in shared memory, one row a warp updated
+//   in place (each lane reads and writes only its own float4 of each
+//   128-wide chunk; the neighbours come by shuffles), and the ring holds
+//   128-wide chunks rather than whole steps: 16 chunks in flight a warp
+//   whatever D is, so D up to 29056 (kMaxD) still fits one block.
 //
-// Both keep the arithmetic order (C + best) - m of the plain version, so
-// they agree with it bit for bit.
-//
-// What holds this design back: the serial chain of S dependent steps, and
-// only N warps in flight (N = 960 or 1280 at the slice's shapes, about 7-10
-// warps per SM), which is too little memory-level parallelism to reach the
-// bandwidth bound. Several rows per warp, a deeper prefetch (cp.async) and
-// folding the flips and concatenations of sgm_aggregate into the indexing
-// are for later work.
+// Measured on an H100 80GB HBM3 at 700 W (scripts/sgm_kernel_variants.py
+// and scripts/profile_dense_torch.py, PERF.md): 72-80 % of the bound at
+// D = 96 to 512, 77 % at 1500. What still holds it back: with no copies at
+// all a (640, 960, 96) sweep still takes 0.098 ms, 69 % of its bound: the
+// loop issues ~108 instructions a step and ~7 warps share an SM's four
+// schedulers. With the copies it reaches ~2.7 TB/s; ring depths 4, 8 and
+// 16 take the same time, so the copies are no longer short of bytes in
+// flight.
 
 #include <cuda_runtime.h>
 
@@ -55,311 +68,448 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 4;
-constexpr int kChunk = 4 * kWarp;  // D values per chunk
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxVpl = 16;             // register carry: D <= 512
+constexpr int kChunk = 128;             // D values in a ring slot of the smem carry
+constexpr int kChunkRing = 16;          // its ring depth, in chunks
+constexpr int kSmemStatic = 48 * 1024;  // dynamic shared memory without opt-in
+constexpr int kSmemMax = 232448;        // opt-in limit of an H100 block
+constexpr int kMaxD = 29056;
 
-template <int CHUNKS, bool VEC>
-__device__ __forceinline__ void load_row(const float* __restrict__ row, int D, int lane,
-                                         float (&v)[CHUNKS][4]) {
-#pragma unroll
-  for (int k = 0; k < CHUNKS; ++k) {
-    const int d0 = k * kChunk + 4 * lane;
-    if (VEC) {
-      if (d0 < D) {
-        const float4 x = __ldg(reinterpret_cast<const float4*>(row + d0));
-        v[k][0] = x.x;
-        v[k][1] = x.y;
-        v[k][2] = x.z;
-        v[k][3] = x.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[k][j] = __int_as_float(0x7f800000);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[k][j] = (d0 + j < D) ? __ldg(row + d0 + j) : __int_as_float(0x7f800000);
-    }
-  }
+// One launch: B*N chains of S steps; strides in floats. out shares cost's
+// strides; p2 has its own.
+struct Sweep {
+  const float* cost;
+  const float* p2;
+  float* out;
+  long long c_b, c_n, c_s;
+  long long p_b, p_n, p_s;
+  int B, S, N, D;
+  float p1;
+  int accumulate;
+  int vec;  // 16-byte copies: D % 4 == 0, every row 16-byte aligned
+};
+
+// Ring depth (steps) of the register-carry kernel: 8 up to D = 192, then
+// fewer as rows grow, 3 at D = 512 (~6 KB of cost rows a warp).
+__host__ __device__ constexpr int ring_depth(int vpl) {
+  return 48 / vpl < 3 ? 3 : (48 / vpl > 8 ? 8 : 48 / vpl);
 }
 
-template <int CHUNKS, bool VEC>
-__device__ __forceinline__ void store_row(float* __restrict__ row, int D, int lane,
-                                          const float (&v)[CHUNKS][4]) {
-#pragma unroll
-  for (int k = 0; k < CHUNKS; ++k) {
-    const int d0 = k * kChunk + 4 * lane;
-    if (VEC) {
-      if (d0 < D)
-        *reinterpret_cast<float4*>(row + d0) = make_float4(v[k][0], v[k][1], v[k][2], v[k][3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (d0 + j < D) row[d0 + j] = v[k][j];
-    }
-  }
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
-template <int CHUNKS, bool VEC>
-__global__ void __launch_bounds__(kWarp* kWarpsPerBlock)
-    sgm_directional_kernel(const float* __restrict__ cost, const float* __restrict__ p2,
-                           float* __restrict__ out, int S, int N, int D, float p1) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int n = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
-  if (n >= N) return;  // whole warps leave together
-
-  const size_t step = static_cast<size_t>(N) * D;  // elements per s
-  const float* c_row = cost + static_cast<size_t>(n) * D;
-  float* o_row = out + static_cast<size_t>(n) * D;
-  const float inf = __int_as_float(0x7f800000);
-
-  float L[CHUNKS][4];
-  float C[CHUNKS][4];
-  load_row<CHUNKS, VEC>(c_row, D, lane, L);
-  store_row<CHUNKS, VEC>(o_row, D, lane, L);  // row s = 0 passes through
-  float p2_next = 0.f;
-  if (S > 1) {
-    load_row<CHUNKS, VEC>(c_row + step, D, lane, C);
-    p2_next = __ldg(p2 + static_cast<size_t>(N) + n);
-  }
-
-  for (int s = 1; s < S; ++s) {
-    float Cs[CHUNKS][4];
-#pragma unroll
-    for (int k = 0; k < CHUNKS; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Cs[k][j] = C[k][j];
-    const float p2s = p2_next;
-    if (s + 1 < S) {  // issue the next row's loads before this step's math
-      load_row<CHUNKS, VEC>(c_row + (s + 1) * step, D, lane, C);
-      p2_next = __ldg(p2 + static_cast<size_t>(s + 1) * N + n);
-    }
-
-    // m = min_d L_{s-1}
-    float m = inf;
-#pragma unroll
-    for (int k = 0; k < CHUNKS; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) m = fminf(m, L[k][j]);
-#pragma unroll
-    for (int off = kWarp / 2; off > 0; off /= 2) m = fminf(m, __shfl_xor_sync(kFull, m, off));
-
-    // neighbours across the 4-value borders of each lane
-    float left[CHUNKS], right[CHUNKS];
-#pragma unroll
-    for (int k = 0; k < CHUNKS; ++k) {
-      left[k] = __shfl_up_sync(kFull, L[k][3], 1);    // d0 - 1 from lane - 1
-      right[k] = __shfl_down_sync(kFull, L[k][0], 1);  // d0 + 4 from lane + 1
-    }
-    // ... and across the chunk borders (lane 0 <-> lane 31 of the chunk before)
-#pragma unroll
-    for (int k = 0; k < CHUNKS; ++k) {
-      if (k > 0) {
-        const float x = __shfl_sync(kFull, L[k - 1][3], kWarp - 1);
-        if (lane == 0) left[k] = x;
-      }
-      if (k + 1 < CHUNKS) {
-        const float y = __shfl_sync(kFull, L[k + 1][0], 0);
-        if (lane == kWarp - 1) right[k] = y;
-      }
-    }
-
-    const float mp2 = m + p2s;
-#pragma unroll
-    for (int k = 0; k < CHUNKS; ++k) {
-      float nl[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = k * kChunk + 4 * lane + j;
-        if (d >= D) {
-          nl[j] = inf;
-          continue;
-        }
-        const float lp = L[k][j];
-        float up = (j > 0) ? L[k][j - 1] : left[k];
-        float dn = (j < 3) ? L[k][j + 1] : right[k];
-        if (d == 0) up = lp;
-        if (d == D - 1) dn = lp;
-        const float best = fminf(fminf(lp, fminf(up, dn) + p1), mp2);
-        nl[j] = (Cs[k][j] + best) - m;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) L[k][j] = nl[j];
-    }
-    store_row<CHUNKS, VEC>(o_row + s * step, D, lane, L);
-  }
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 
-constexpr int kMaxRegChunks = 4;          // register path: D <= 512
-constexpr int kSmemBudget = 48 * 1024;    // static limit, no opt-in needed
-constexpr int kSmemMax = 232448;          // opt-in limit of an H100 block
-constexpr int kMaxD = kSmemMax / (2 * 4);  // two carry rows for one warp: 29056
-
-__device__ __forceinline__ float warp_min(float m) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off /= 2) m = fminf(m, __shfl_xor_sync(kFull, m, off));
-  return m;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <bool VEC>
-__device__ __forceinline__ void load4(const float* __restrict__ row, int D, int d0, float (&v)[4]) {
-  if (VEC) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(row + d0));
-    v[0] = x.x;
-    v[1] = x.y;
-    v[2] = x.z;
-    v[3] = x.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = (d0 + j < D) ? __ldg(row + d0 + j) : __int_as_float(0x7f800000);
-  }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <bool VEC>
-__device__ __forceinline__ void store4(float* __restrict__ row, int D, int d0, const float (&v)[4]) {
-  if (VEC) {
-    *reinterpret_cast<float4*>(row + d0) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (d0 + j < D) row[d0 + j] = v[j];
-  }
+// min over the warp's 32 lanes in one redux.sync: floats map to unsigned
+// keys in the same order (positive: sign bit set; negative: all bits
+// flipped), and back.
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return u ^ (static_cast<unsigned>(static_cast<int>(u) >> 31) | 0x80000000u);
 }
 
-// The carry in shared memory: Dp = D rounded up to 4 floats a row, two rows
-// a warp. Padding slots hold +inf.
-template <bool VEC>
-__global__ void __launch_bounds__(kWarp* kWarpsPerBlock)
-    sgm_directional_smem_kernel(const float* __restrict__ cost, const float* __restrict__ p2,
-                                float* __restrict__ out, int S, int N, int D, float p1,
-                                int warps_per_block) {
+__device__ __forceinline__ float from_order_key(unsigned k) {
+  return __uint_as_float(k ^ (~static_cast<unsigned>(static_cast<int>(k) >> 31) | 0x80000000u));
+}
+
+__device__ __forceinline__ unsigned warp_min_key(float v) {
+  return __reduce_min_sync(kFull, order_key(v));
+}
+
+// Where a warp's chain starts; false for the warps past the last chain.
+struct Chain {
+  const float* c;
+  const float* q;
+  float* o;
+};
+
+__device__ __forceinline__ bool chain_of(const Sweep& w, long long chain, Chain& ch) {
+  if (chain >= static_cast<long long>(w.B) * w.N) return false;
+  const long long b = chain / w.N, n = chain % w.N;
+  ch.c = w.cost + b * w.c_b + n * w.c_n;
+  ch.q = w.p2 + b * w.p_b + n * w.p_n;
+  ch.o = w.out + b * w.c_b + n * w.c_n;
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// D <= 512: the carry in registers, lane l holding d = l + 32 j (j < VPL).
+// Ring slot of one step: cost[D4] | total[D4] (ACC) | p2 (4 floats).
+// ---------------------------------------------------------------------------
+
+template <int VPL, bool VEC, bool ACC>
+__global__ void __launch_bounds__(kWarp* kWarpsPerBlock) sgm_sweep_reg_kernel(const Sweep w) {
+  constexpr int K = ring_depth(VPL);
+  constexpr int kPieces = (VPL * kWarp / 4 + kWarp - 1) / kWarp;  // 16-byte copies a lane
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
-  const int n = blockIdx.x * warps_per_block + warp;
-  // whole warps leave together (those past warps_per_block, whose shared
-  // rows do not exist, and those past N); no block-wide barrier below
-  if (warp >= warps_per_block || n >= N) return;
+  Chain ch;
+  if (!chain_of(w, static_cast<long long>(blockIdx.x) * kWarpsPerBlock + warp, ch))
+    return;  // whole warps leave together; no block-wide barrier below
+  const int D = w.D;
+  const int D4 = (D + 3) & ~3;
+  const int slot_f = (ACC ? 2 * D4 : D4) + 4;
+  float* const ring = reinterpret_cast<float*>(smem4) + static_cast<size_t>(warp) * K * slot_f;
 
-  const int Dp = (D + 3) & ~3;
-  float* cur = reinterpret_cast<float*>(smem4) + static_cast<size_t>(warp) * 2 * Dp;
-  float* nxt = cur + Dp;
-  const size_t step = static_cast<size_t>(N) * D;
-  const float* c_row = cost + static_cast<size_t>(n) * D;
-  float* o_row = out + static_cast<size_t>(n) * D;
-  const float inf = __int_as_float(0x7f800000);
-
-  // row s = 0 passes through; m = its min
-  float m = inf;
-  for (int d0 = 4 * lane; d0 < D; d0 += kChunk) {
-    float v[4];
-    load4<VEC>(c_row, D, d0, v);
-    store4<VEC>(o_row, D, d0, v);
-    *reinterpret_cast<float4*>(cur + d0) = make_float4(v[0], v[1], v[2], v[3]);
-    m = fminf(m, fminf(fminf(v[0], v[1]), fminf(v[2], v[3])));
-  }
-  m = warp_min(m);
-  __syncwarp();
-
-  for (int s = 1; s < S; ++s) {
-    const float* c_s = c_row + s * step;
-    float* o_s = o_row + s * step;
-    const float mp2 = m + __ldg(p2 + static_cast<size_t>(s) * N + n);
-    float mn = inf;
-    for (int d0 = 4 * lane; d0 < D; d0 += kChunk) {
-      float Cs[4];
-      load4<VEC>(c_s, D, d0, Cs);
-      const float4 l4 = *reinterpret_cast<const float4*>(cur + d0);
-      const float Lv[4] = {l4.x, l4.y, l4.z, l4.w};
-      const float left = (d0 > 0) ? cur[d0 - 1] : Lv[0];
-      const float right = (d0 + 4 < D) ? cur[d0 + 4] : Lv[3];
-      float nl[4];
+  // The copies: step s_in goes to slot s_in % K, one commit group a step
+  // (empty past S, so the group count stays uniform).
+  int s_in = 0, slot_in = 0;
+  const float* c_in = ch.c;
+  const float* o_in = ch.o;
+  const float* q_in = ch.q;
+  auto issue = [&]() {
+    if (s_in < w.S) {
+      float* slot = ring + slot_in * slot_f;
+      if (VEC) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = d0 + j;
-        if (d >= D) {
-          nl[j] = inf;
-          continue;
+        for (int k = 0; k < kPieces; ++k) {
+          const int i = 4 * (lane + kWarp * k);
+          if (i < D) {
+            cp_async16(slot + i, c_in + i);
+            if (ACC) cp_async16(slot + D4 + i, o_in + i);
+          }
         }
-        const float lp = Lv[j];
-        float up = (j > 0) ? Lv[j - 1] : left;
-        float dn = (j < 3) ? Lv[j + 1] : right;
-        if (d == 0) up = lp;
-        if (d == D - 1) dn = lp;
-        const float best = fminf(fminf(lp, fminf(up, dn) + p1), mp2);
-        nl[j] = (Cs[j] + best) - m;
+      } else {
+#pragma unroll
+        for (int j = 0; j < VPL; ++j) {
+          const int d = lane + kWarp * j;
+          if (d < D) {
+            cp_async4(slot + d, c_in + d);
+            if (ACC) cp_async4(slot + D4 + d, o_in + d);
+          }
+        }
       }
-      store4<VEC>(o_s, D, d0, nl);
-      *reinterpret_cast<float4*>(nxt + d0) = make_float4(nl[0], nl[1], nl[2], nl[3]);
-      mn = fminf(mn, fminf(fminf(nl[0], nl[1]), fminf(nl[2], nl[3])));
+      if (lane == 0) cp_async4(slot + slot_f - 4, q_in);
+      c_in += w.c_s;
+      o_in += w.c_s;
+      q_in += w.p_s;
+      ++s_in;
+      slot_in = slot_in + 1 == K ? 0 : slot_in + 1;
     }
-    m = warp_min(mn);
-    __syncwarp();  // this step's row is complete before the next step reads it
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
+    cp_async_commit();
+  };
+
+  const float inf = inf_f();
+  float C[VPL], q;  // this step's costs and P2, read from the ring
+  int slot_cur = 0;
+  auto read_slot = [&]() {
+    const float* slot = ring + slot_cur * slot_f;
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      const int d = lane + kWarp * j;
+      C[j] = d < D ? slot[d] : inf;  // padding lanes stay +inf
+    }
+    q = slot[slot_f - 4];
+  };
+
+  for (int i = 0; i < K; ++i) issue();  // steps 0 .. K-1 in flight
+  cp_async_wait<K - 1>();
+  __syncwarp();
+  read_slot();
+
+  // L_{s-1}, its neighbours d - 1 and d + 1 (edge-replicated) and its min
+  float L[VPL], up[VPL], dn[VPL];
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) L[j] = up[j] = dn[j] = inf;
+  float* o_s = ch.o;
+  for (int s = 0; s < w.S; ++s) {
+    const float* slot = ring + slot_cur * slot_f;
+    const float mp2 = m + q;
+    float lmin = inf;
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      const int d = lane + kWarp * j;
+      const float best = fminf(fminf(L[j], fminf(up[j], dn[j]) + w.p1), mp2);
+      const float nl = s == 0 ? C[j] : (C[j] + best) - m;  // +inf stays +inf
+      if (d < D) o_s[d] = ACC ? slot[D4 + d] + nl : nl;
+      L[j] = nl;
+      lmin = fminf(lmin, nl);
+    }
+    const unsigned m_key = warp_min_key(lmin);  // the step's one serial reduction
+    // Work that does not wait for it: the next step's neighbours, the next
+    // copies, and the next step's inputs.
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      const int d = lane + kWarp * j;
+      // d - 1: lane - 1's value j, or lane 31's value j - 1 for lane 0
+      const float up_src = (lane == kWarp - 1 && j > 0) ? L[j > 0 ? j - 1 : 0] : L[j];
+      // d + 1: lane + 1's value j, or lane 0's value j + 1 for lane 31
+      const float dn_src = (lane == 0 && j + 1 < VPL) ? L[j + 1 < VPL ? j + 1 : j] : L[j];
+      const float u = __shfl_sync(kFull, up_src, (lane + kWarp - 1) & (kWarp - 1));
+      const float v = __shfl_sync(kFull, dn_src, (lane + 1) & (kWarp - 1));
+      up[j] = d == 0 ? L[j] : u;
+      dn[j] = d == D - 1 ? L[j] : v;
+    }
+    __syncwarp();  // every lane is done with this step's slot
+    issue();       // step s + K into it
+    cp_async_wait<K - 1>();  // this lane's copies of step s + 1 have landed
+    __syncwarp();            // ... and every lane's
+    slot_cur = slot_cur + 1 == K ? 0 : slot_cur + 1;
+    read_slot();  // (past the last step: stale values, never used)
+    o_s += w.c_s;
+    m = from_order_key(m_key);
   }
+  cp_async_wait<0>();  // nothing left in flight when the warp ends
 }
 
-template <int CHUNKS>
-void launch(const float* cost, const float* p2, float* out, int S, int N, int D, float p1,
-            bool vec, cudaStream_t stream) {
-  const dim3 block(kWarp * kWarpsPerBlock);
-  const dim3 grid((N + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  if (vec)
-    sgm_directional_kernel<CHUNKS, true><<<grid, block, 0, stream>>>(cost, p2, out, S, N, D, p1);
-  else
-    sgm_directional_kernel<CHUNKS, false><<<grid, block, 0, stream>>>(cost, p2, out, S, N, D, p1);
+// ---------------------------------------------------------------------------
+// D > 512: the carry in shared memory (NC chunks of 128, one row a warp,
+// updated in place), lane l owning d = 128 c + 4 l + (0..3) of chunk c.
+// Ring slot of one chunk: cost[128] | total[128] (ACC) | p2 (4 floats,
+// filled for chunk 0 of a step).
+// ---------------------------------------------------------------------------
+
+template <bool VEC, bool ACC>
+__global__ void __launch_bounds__(kWarp* kWarpsPerBlock)
+    sgm_sweep_smem_kernel(const Sweep w, int warps_per_block) {
+  constexpr int kSlot = (ACC ? 2 * kChunk : kChunk) + 4;
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  Chain ch;
+  // warps past warps_per_block have no shared memory; they and those past
+  // the last chain leave together, and no block-wide barrier follows
+  if (warp >= warps_per_block ||
+      !chain_of(w, static_cast<long long>(blockIdx.x) * warps_per_block + warp, ch))
+    return;
+  const int D = w.D;
+  const int nc = (D + kChunk - 1) / kChunk;
+  float* const base = reinterpret_cast<float*>(smem4) +
+                      static_cast<size_t>(warp) * (nc * kChunk + kChunkRing * kSlot);
+  float4* const carry = reinterpret_cast<float4*>(base);  // nc * 32 float4
+  float* const ring = base + nc * kChunk;
+
+  // The copies: chunk c_in of step s_in goes to slot slot_in.
+  int s_in = 0, c_in = 0, slot_in = 0;
+  const float* cs_in = ch.c;
+  const float* os_in = ch.o;
+  auto issue = [&]() {
+    if (s_in < w.S) {
+      float* slot = ring + slot_in * kSlot + 4 * lane;
+      const int d0 = c_in * kChunk + 4 * lane;
+      if (VEC) {
+        if (d0 < D) {
+          cp_async16(slot, cs_in + d0);
+          if (ACC) cp_async16(slot + kChunk, os_in + d0);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (d0 + j < D) {
+            cp_async4(slot + j, cs_in + d0 + j);
+            if (ACC) cp_async4(slot + kChunk + j, os_in + d0 + j);
+          }
+        }
+      }
+      if (c_in == 0 && lane == 0)
+        cp_async4(ring + slot_in * kSlot + kSlot - 4, ch.q + s_in * w.p_s);
+      slot_in = slot_in + 1 == kChunkRing ? 0 : slot_in + 1;
+      if (++c_in == nc) {
+        c_in = 0;
+        ++s_in;
+        cs_in += w.c_s;
+        os_in += w.c_s;
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int i = 0; i < kChunkRing - 1; ++i) issue();
+
+  const float inf = inf_f();
+  const float4 inf4 = make_float4(inf, inf, inf, inf);
+  float m = 0.f;  // min_d L_{s-1}
+  int slot_cur = 0;
+  float* o_s = ch.o;
+  for (int s = 0; s < w.S; ++s, o_s += w.c_s) {
+    float lmin = inf, mp2 = 0.f;
+    float4 nxt = s > 0 ? carry[lane] : inf4;
+    float prev_w = inf;  // this lane's old value 4 l + 3 of the chunk before
+    for (int c = 0; c < nc; ++c) {
+      cp_async_wait<kChunkRing - 2>();
+      __syncwarp();  // chunk (s, c) has landed; the slot before it is free
+      issue();
+      const float* slot = ring + slot_cur * kSlot;
+      slot_cur = slot_cur + 1 == kChunkRing ? 0 : slot_cur + 1;
+      const int d0 = c * kChunk + 4 * lane;
+      const float4 c4 = reinterpret_cast<const float4*>(slot)[lane];
+      const float Cv[4] = {d0 < D ? c4.x : inf, d0 + 1 < D ? c4.y : inf, d0 + 2 < D ? c4.z : inf,
+                           d0 + 3 < D ? c4.w : inf};
+      float nl[4];
+      if (s == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) nl[j] = Cv[j];
+      } else {
+        if (c == 0) mp2 = m + slot[kSlot - 4];
+        const float4 old = nxt;
+        if (c + 1 < nc) nxt = carry[(c + 1) * (kChunk / 4) + lane];
+        const float Lv[4] = {old.x, old.y, old.z, old.w};
+        // d0 - 1 from lane - 1, or from lane 31 of the chunk before
+        float left = __shfl_up_sync(kFull, old.w, 1);
+        const float left0 = __shfl_sync(kFull, prev_w, kWarp - 1);
+        if (lane == 0) left = left0;
+        // d0 + 4 from lane + 1, or from lane 0 of the next chunk
+        float right = __shfl_down_sync(kFull, old.x, 1);
+        const float right31 = __shfl_sync(kFull, nxt.x, 0);
+        if (lane == kWarp - 1) right = right31;
+        prev_w = old.w;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int d = d0 + j;
+          float up = j > 0 ? Lv[j > 0 ? j - 1 : 0] : left;
+          float dn = j < 3 ? Lv[j < 3 ? j + 1 : 3] : right;
+          if (d == 0) up = Lv[j];
+          if (d == D - 1) dn = Lv[j];
+          const float best = fminf(fminf(Lv[j], fminf(up, dn) + w.p1), mp2);
+          nl[j] = (Cv[j] + best) - m;  // +inf stays +inf past D
+        }
+      }
+      carry[c * (kChunk / 4) + lane] = make_float4(nl[0], nl[1], nl[2], nl[3]);
+      float v[4] = {nl[0], nl[1], nl[2], nl[3]};
+      if (ACC) {
+        const float4 t4 = reinterpret_cast<const float4*>(slot + kChunk)[lane];
+        v[0] = t4.x + nl[0];
+        v[1] = t4.y + nl[1];
+        v[2] = t4.z + nl[2];
+        v[3] = t4.w + nl[3];
+      }
+      if (VEC) {
+        if (d0 < D) *reinterpret_cast<float4*>(o_s + d0) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (d0 + j < D) o_s[d0 + j] = v[j];
+      }
+      lmin = fminf(lmin, fminf(fminf(nl[0], nl[1]), fminf(nl[2], nl[3])));
+    }
+    m = from_order_key(warp_min_key(lmin));
+  }
+  cp_async_wait<0>();
 }
 
-template <bool VEC>
-cudaError_t launch_smem(const float* cost, const float* p2, float* out, int S, int N, int D,
-                        float p1, cudaStream_t stream) {
-  const int per_warp = 2 * ((D + 3) & ~3) * static_cast<int>(sizeof(float));
-  int wpb = kSmemBudget / per_warp;
-  wpb = wpb < 1 ? 1 : (wpb > kWarpsPerBlock ? kWarpsPerBlock : wpb);
-  const int bytes = wpb * per_warp;
-  if (bytes > kSmemBudget) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sgm_directional_smem_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 block(kWarp * kWarpsPerBlock);  // warps past wpb leave at once
-  const dim3 grid((N + wpb - 1) / wpb);
-  sgm_directional_smem_kernel<VEC><<<grid, block, bytes, stream>>>(cost, p2, out, S, N, D, p1, wpb);
+template <typename Kernel>
+cudaError_t set_smem(Kernel* fn, int bytes) {
+  if (bytes <= kSmemStatic) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int VPL, bool VEC, bool ACC>
+cudaError_t launch_reg(const Sweep& w, cudaStream_t stream) {
+  const int D4 = (w.D + 3) & ~3;
+  const int slot_f = (ACC ? 2 * D4 : D4) + 4;
+  const int bytes = kWarpsPerBlock * ring_depth(VPL) * slot_f * static_cast<int>(sizeof(float));
+  const cudaError_t e = set_smem(sgm_sweep_reg_kernel<VPL, VEC, ACC>, bytes);
+  if (e != cudaSuccess) return e;
+  const long long chains = static_cast<long long>(w.B) * w.N;
+  const dim3 grid(static_cast<unsigned>((chains + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  sgm_sweep_reg_kernel<VPL, VEC, ACC><<<grid, kWarp * kWarpsPerBlock, bytes, stream>>>(w);
   return cudaSuccess;
 }
 
+template <int VPL>
+cudaError_t dispatch_reg(const Sweep& w, cudaStream_t stream) {
+  if (w.vec)
+    return w.accumulate ? launch_reg<VPL, true, true>(w, stream)
+                        : launch_reg<VPL, true, false>(w, stream);
+  return w.accumulate ? launch_reg<VPL, false, true>(w, stream)
+                      : launch_reg<VPL, false, false>(w, stream);
+}
+
+template <bool VEC, bool ACC>
+cudaError_t launch_smem(const Sweep& w, cudaStream_t stream) {
+  constexpr int kSlot = (ACC ? 2 * kChunk : kChunk) + 4;
+  const int nc = (w.D + kChunk - 1) / kChunk;
+  const int per_warp = (nc * kChunk + kChunkRing * kSlot) * static_cast<int>(sizeof(float));
+  int wpb = kSmemMax / per_warp;
+  wpb = wpb < 1 ? 1 : (wpb > kWarpsPerBlock ? kWarpsPerBlock : wpb);
+  const int bytes = wpb * per_warp;
+  if (bytes > kSmemMax) return cudaErrorInvalidValue;
+  const cudaError_t e = set_smem(sgm_sweep_smem_kernel<VEC, ACC>, bytes);
+  if (e != cudaSuccess) return e;
+  const long long chains = static_cast<long long>(w.B) * w.N;
+  const dim3 grid(static_cast<unsigned>((chains + wpb - 1) / wpb));
+  sgm_sweep_smem_kernel<VEC, ACC><<<grid, kWarp * kWarpsPerBlock, bytes, stream>>>(w, wpb);
+  return cudaSuccess;
+}
+
+cudaError_t dispatch_smem(const Sweep& w, cudaStream_t stream) {
+  if (w.vec)
+    return w.accumulate ? launch_smem<true, true>(w, stream) : launch_smem<true, false>(w, stream);
+  return w.accumulate ? launch_smem<false, true>(w, stream) : launch_smem<false, false>(w, stream);
+}
+
+// The register widths compiled, in rising order up to kMaxVpl: D needing
+// `vpl` values a lane runs on the first rung >= vpl (its extra values are
+// d >= D and hold +inf, as in any ragged D); past the last rung the carry
+// goes to shared memory.
+template <int V, int... Rest>
+cudaError_t dispatch_rungs(int vpl, const Sweep& w, cudaStream_t stream) {
+  if (vpl <= V) return dispatch_reg<V>(w, stream);
+  if constexpr (sizeof...(Rest) > 0) {
+    return dispatch_rungs<Rest...>(vpl, w, stream);
+  } else {
+    static_assert(V == kMaxVpl, "the last rung is kMaxVpl");
+    return dispatch_smem(w, stream);
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
-// Plain C entry for ctypes. Launches on `stream` without synchronizing and
-// returns cudaGetLastError() (0 on success).
-extern "C" int sgm_directional_pass_f32(const void* cost, const void* p2, void* out, int S,
-                                        int N, int D, float p1, int device, void* stream) {
-  if (S < 1 || N < 1 || D < 1 || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+// Plain C entry for ctypes: one sweep of B*N chains of S steps (see the
+// note above; strides in floats, cost and out sharing theirs). Launches on
+// `stream` without synchronizing and returns cudaGetLastError() (0 on
+// success), or the error of a refused launch setting.
+extern "C" int sgm_sweep_f32(const void* cost, const void* p2, void* out, int B, int S, int N,
+                             int D, long long c_b, long long c_n, long long c_s, long long p_b,
+                             long long p_n, long long p_s, float p1, int accumulate, int device,
+                             void* stream) {
+  if (B < 1 || S < 1 || N < 1 || D < 1 || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   int current = -1;
   if (cudaGetDevice(&current) != cudaSuccess || current != device) {
     const cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const auto* c = static_cast<const float*>(cost);
-  const auto* q = static_cast<const float*>(p2);
-  auto* o = static_cast<float*>(out);
-  const bool vec = (D % 4 == 0) && (reinterpret_cast<std::uintptr_t>(c) % 16 == 0) &&
-                   (reinterpret_cast<std::uintptr_t>(o) % 16 == 0);
+  Sweep w;
+  w.cost = static_cast<const float*>(cost);
+  w.p2 = static_cast<const float*>(p2);
+  w.out = static_cast<float*>(out);
+  w.c_b = c_b;
+  w.c_n = c_n;
+  w.c_s = c_s;
+  w.p_b = p_b;
+  w.p_n = p_n;
+  w.p_s = p_s;
+  w.B = B;
+  w.S = S;
+  w.N = N;
+  w.D = D;
+  w.p1 = p1;
+  w.accumulate = accumulate != 0;
+  w.vec = D % 4 == 0 && c_b % 4 == 0 && c_n % 4 == 0 && c_s % 4 == 0 && aligned16(cost) &&
+          aligned16(out);
   auto st = static_cast<cudaStream_t>(stream);
-  if (D <= kChunk) {
-    launch<1>(c, q, o, S, N, D, p1, vec, st);
-  } else if (D <= 2 * kChunk) {
-    launch<2>(c, q, o, S, N, D, p1, vec, st);
-  } else if (D <= 3 * kChunk) {
-    launch<3>(c, q, o, S, N, D, p1, vec, st);
-  } else if (D <= kMaxRegChunks * kChunk) {
-    launch<4>(c, q, o, S, N, D, p1, vec, st);
-  } else {
-    const cudaError_t e = vec ? launch_smem<true>(c, q, o, S, N, D, p1, st)
-                              : launch_smem<false>(c, q, o, S, N, D, p1, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = dispatch_rungs<1, 2, 3, 4, 6, 8, 12, 16>((D + kWarp - 1) / kWarp, w, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,9 +10,10 @@ For every (depth, tcam) the T-cam image is warped into the reference view
 through the fronto-parallel plane homography, and windowed ZNCC between
 reference and warp is computed with separable Gaussian moments. SGM cost
 aggregation is the 4-direction dynamic program with the image-gradient
-adaptive P2 of the reference. Each directional sweep goes through
-`ops/sgm_kernel.sgm_directional_pass`: the hand-written CUDA kernel for a
-tensor on the card, the plain `_directional_pass` below for one on the CPU.
+adaptive P2 of the reference. Each axis's two directional sweeps go through
+`ops/sgm_kernel.sgm_axis_sweeps`: the hand-written CUDA kernel for a tensor
+on the card, the plain `_axis_sweeps` below (over `_directional_pass`) for
+one on the CPU.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..image.filtering import gaussian_blur
-from ..ops.sgm_kernel import sgm_directional_pass
+from ..ops.sgm_kernel import sgm_axis_sweeps
 
 _EPS = 1e-6
 
@@ -263,6 +264,34 @@ def _diagonal_pass(cost: torch.Tensor, p2_img: torch.Tensor, p1: float, shift: i
     return out
 
 
+def _axis_sweeps(vol, p2_img, p1: float, axis: int, total=None):
+    """Forward and backward SGM sweeps along `axis` (0: H, 1: W) of vol
+    (H, W, D), or (B, H, W, D) one view at a time, with per-position P2
+    p2_img (vol's shape without D). Adds the forward, then the backward
+    sweep into `total` in place, or returns fwd + bwd when total is None.
+    Opposite directions are stacked on the row axis of one
+    `_directional_pass`. The plain version of
+    ops/sgm_kernel.sgm_axis_sweeps, whose kernel walks the same chains by
+    index."""
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 (H) or 1 (W), got {axis}")
+    if vol.dim() == 4:
+        if total is None:
+            return torch.stack([_axis_sweeps(v, p, p1, axis) for v, p in zip(vol, p2_img)])
+        for v, p, t in zip(vol, p2_img, total):
+            _axis_sweeps(v, p, p1, axis, t)
+        return total
+    c, p = (vol.transpose(0, 1), p2_img.T) if axis == 1 else (vol, p2_img)
+    N = c.shape[1]
+    both = _directional_pass(torch.cat([c, c.flip(0)], dim=1), torch.cat([p, p.flip(0)], dim=1), p1)
+    fwd, bwd = both[:, :N], both.flip(0)[:, N:]
+    if axis == 1:
+        fwd, bwd = fwd.transpose(0, 1), bwd.transpose(0, 1)
+    if total is None:
+        return fwd + bwd
+    return total.add_(fwd).add_(bwd)
+
+
 def sgm_aggregate(
     cost: torch.Tensor,  # (D, H, W)
     ref_img: torch.Tensor,  # (H, W) for gradient-adaptive P2
@@ -271,11 +300,14 @@ def sgm_aggregate(
     """4-direction SGM (left/right/up/down), the reference's "YX" both ways,
     plus the four diagonals when params.n_dirs >= 8 (plain torch only).
 
-    Opposite directions are stacked on the row axis of one pass, so the
-    axis directions take two directional passes: (W, 2H, D) then
-    (H, 2W, D). The kernel wants contiguous (S, N, D), so the transposes,
-    flips and concatenations below are materialized copies."""
+    The running total is ((right + left) + down) + up, the reference's
+    order. Each axis's two sweeps are one `sgm_axis_sweeps` call: on the
+    card the kernel walks the (H, W, D) volume by index, so the transpose
+    below is the only copy of the volume; on the CPU the plain version
+    stacks each pair on the row axis of one directional pass."""
     vol = cost.permute(1, 2, 0)  # (H, W, D)
+    if vol.device.type != "cpu":  # the kernel's layout: D innermost
+        vol = vol.contiguous()
 
     # Adaptive P2: large in flat areas, small across strong gradients
     # (deviceSimilarityVolumeKernels.cuh:597-656 uses grad-based weighting).
@@ -288,26 +320,10 @@ def sgm_aggregate(
         )
 
     p1 = params.p1
-    H, W = ref_img.shape
-
-    # horizontal sweeps: scan over W; rows (H) are the batch axis
-    c_lr = vol.transpose(0, 1)  # (W, H, D)
-    p2x = p2_of(gx).T  # (W, H)
-    both_h = sgm_directional_pass(
-        torch.cat([c_lr, c_lr.flip(0)], dim=1),
-        torch.cat([p2x, p2x.flip(0)], dim=1),
-        p1,
-    )
-    total = (both_h[:, :H] + both_h.flip(0)[:, H:]).transpose(0, 1)  # (H, W, D)
-
-    # vertical sweeps: scan over H
-    p2y = p2_of(gy)
-    both_v = sgm_directional_pass(
-        torch.cat([vol, vol.flip(0)], dim=1),
-        torch.cat([p2y, p2y.flip(0)], dim=1),
-        p1,
-    )
-    total = total + both_v[:, :W] + both_v.flip(0)[:, W:]
+    W = ref_img.shape[1]
+    # horizontal sweeps along W, then the vertical ones along H, (H, W, D)
+    total = sgm_axis_sweeps(vol, p2_of(gx).contiguous(), p1, axis=1)
+    total = sgm_axis_sweeps(vol, p2_of(gy).contiguous(), p1, axis=0, total=total)
 
     if params.n_dirs >= 8:
         # four diagonal paths, two per sweep (forward + both-axes-flipped)

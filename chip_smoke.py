@@ -9,19 +9,25 @@ toolkit (`nvcc`). It
 
 1. prints the card's name and power limit (nvidia-smi) and turns TF32 off;
 2. builds every CUDA source of the port (`alicevision_tpu_torch/csrc/`);
-3. holds the SGM kernel against its plain PyTorch version on the card at
-   the reference's test shapes, ragged ones, D past 256 (257, 512, 1500:
-   more register chunks, then the carry in shared memory) and the two
-   shapes of the dense path, and times both at the latter (and at D = 96,
-   the JAX runner's default, and at D = 512 and 1500) with CUDA events
-   beside the bandwidth bound;
+3. holds the SGM kernel's two entries against their plain PyTorch versions
+   on the card: `sgm_directional_pass` at the reference's test shapes,
+   ragged ones, D past 512 (the carry in shared memory, up to the
+   reference's default of 1500 planes) and the stacked (S, N, D) sweeps of
+   one 640x480 map at D = 96, 256, 320, 512 and 1500, timed there with CUDA
+   events beside the bandwidth bound; then `sgm_axis_sweeps` and the card's
+   `sgm_aggregate` (against the same function over the plain sweeps) on
+   (D, H, W) volumes at D = 96, 256 and 320 (640x480), two ragged ones and
+   one at D = 1500, with the aggregate's extra device memory (no flipped or
+   concatenated copy) and, at 640x480, its time, its sweeps' time and the
+   plain composite's; the sweeps also for a batch of two views;
 4. renders a posed 8-view 1280x960 scene, writes it as `.npy` images plus a
    pinhole `.sfm`, and runs the port's four dense stages on it
    (prepareDenseScene -> depthMapEstimation at 640x480, D = 256, T = 4 ->
-   depthMapFiltering -> meshing) and one more depth map at D = 320,
-   checking that every SGM sweep of the path went through the kernel and
-   that the depth maps meet the floors of tests/test_golden_mvs.py against
-   the rendered ground truth;
+   depthMapFiltering -> meshing), the 8 depth maps again at the runner's
+   D = 96 and one more map at D = 320, checking that every SGM sweep of the
+   path went through the kernel (four launches a map) and that the depth
+   maps meet the floors of tests/test_golden_mvs.py against the rendered
+   ground truth;
 5. runs the port's SfM front end on the same images (cameraInit ->
    featureExtraction at the runner's 4096 keypoints, resized to 1024x768 ->
    exhaustive imageMatching -> featureMatching with AC-RANSAC F), twice,
@@ -48,6 +54,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -61,7 +68,8 @@ import torch
 from alicevision_tpu_torch import camera as cam
 from alicevision_tpu_torch import sfmdata
 from alicevision_tpu_torch.geometry import mat_to_quat, quat_to_mat
-from alicevision_tpu_torch.mvs.plane_sweep import _directional_pass
+from alicevision_tpu_torch.mvs import plane_sweep
+from alicevision_tpu_torch.mvs.plane_sweep import _axis_sweeps, _directional_pass
 from alicevision_tpu_torch.ops import build, sgm_kernel
 from alicevision_tpu_torch.features import sift
 from alicevision_tpu_torch.image.filtering import _resize_bilinear
@@ -72,24 +80,32 @@ from alicevision_tpu_torch.utils.synthetic import ring_scene
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# The reference's kernel test shapes; D not a multiple of 4 (the scalar
-# load path, two chunks) and D = 1; D past 256 (three and four register
-# chunks, then the shared-memory carry, vector and scalar loads, up to the
-# reference's default of 1500 planes); then the two sweeps of one 640x480
-# depth map at D = 256: horizontal (W, 2H, D) and vertical (H, 2W, D); the
-# same two at D = 96 (the JAX runner's default, one register chunk); and
-# the horizontal sweep at D = 512 and 1500.
+# sgm_directional_pass (S, N, D): the reference's kernel test shapes; D not
+# a multiple of 4 (4-byte copies) and D = 1; D past 256 (register widths 12
+# and 16, then the shared-memory carry, 16- and 4-byte copies, up to the
+# reference's default of 1500 planes); then the stacked sweeps of one
+# 640x480 depth map as PR 1-3 ran them: at D = 256 horizontal (W, 2H, D) and
+# vertical (H, 2W, D); the same two at D = 96 (the JAX runner's default);
+# and the horizontal one at D = 320 (10 values a lane, on the width-12
+# kernel), 512 and 1500.
 PATH_SHAPES = [(640, 960, 256), (480, 1280, 256)]
 D96_SHAPES = [(640, 960, 96), (480, 1280, 96)]
-WIDE_SHAPES = [(640, 960, 512), (640, 960, 1500)]
+WIDE_SHAPES = [(640, 960, 320), (640, 960, 512), (640, 960, 1500)]
 TIMED_SHAPES = PATH_SHAPES + D96_SHAPES + WIDE_SHAPES
 KERNEL_SHAPES = (
     [(7, 13, 100), (12, 16, 256), (9, 11, 131), (4, 5, 1)]
     + [(5, 7, 257), (6, 9, 512), (4, 6, 1500), (5, 7, 1001)]
     + TIMED_SHAPES
 )
+# sgm_axis_sweeps and sgm_aggregate (D, H, W): one 640x480 map at each D of
+# the main path (the runner's 96, then 256 and 320; timed), two ragged
+# volumes, and D = 1500.
+AGG_TIMED = [(96, 480, 640), (256, 480, 640), (320, 480, 640)]
+AGG_SHAPES = AGG_TIMED + [(131, 37, 53), (3, 29, 41), (1500, 48, 64)]
 ATOL, RTOL = 1e-3, 1e-5  # tests/test_pallas_sgm.py; 0 difference expected
 P1 = 10.0
+LAUNCHES_PER_MAP = 4  # sgm_aggregate: two sgm_axis_sweeps calls, two launches each
+INNER = 10  # back-to-back calls timed between two events (see _time_ms)
 
 # NVIDIA H100 SXM data sheet at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -203,8 +219,12 @@ def depth_stats(depth: np.ndarray, gt: np.ndarray):
     return float(np.median(rel)), float(valid.mean())
 
 
-def _time_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median of `reps` CUDA-event timings of fn() after `warmup` calls."""
+def _time_ms(fn, reps: int, warmup: int = 3, inner: int = 1) -> float:
+    """Median over `reps` CUDA-event timings of `inner` back-to-back calls of
+    fn(), per call, after `warmup` calls. With inner = 1 (PR 1-3's method)
+    the time includes the host's launch gap; with inner > 1 the host's
+    launch work overlaps the device's, as on a path that keeps the card
+    busy."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -213,16 +233,27 @@ def _time_ms(fn, reps: int, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
+def _bound(n_bytes: float, n_ops: float):
+    """The least time (ms) the card could take: bytes over its memory rate or
+    operations over its FP32 rate, whichever is larger, and which one."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
 def check_sgm_kernel(dev) -> list:
-    """The kernel against its plain version at every shape; timings and the
-    bound at the main path's shapes."""
+    """sgm_directional_pass against its plain version at every shape;
+    timings and the bound at the timed shapes: `kernel_ms` one launch
+    between two events (PR 1-3's series), `kernel_ms_back_to_back` per
+    launch over INNER launches."""
     rows = []
     for S, N, D in KERNEL_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(S * 100003 + N * 101 + D)
@@ -235,18 +266,113 @@ def check_sgm_kernel(dev) -> list:
         torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
         row = {"shape": [S, N, D], "max_abs_diff": err}
         if (S, N, D) in TIMED_SHAPES:
-            n_bytes = (2 * S * N * D + S * N) * 4
-            n_ops = SGM_OPS_PER_ELEMENT * S * N * D
-            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = n_ops / F32_OPS_PER_S * 1e3
+            bound_ms, bound_by = _bound((2 * S * N * D + S * N) * 4, SGM_OPS_PER_ELEMENT * S * N * D)
+            def kernel():
+                sgm_kernel.sgm_directional_pass(cost, p2, P1)
+
             row.update(
-                kernel_ms=_time_ms(lambda: sgm_kernel.sgm_directional_pass(cost, p2, P1), 30),
+                kernel_ms=_time_ms(kernel, 20),
+                kernel_ms_back_to_back=_time_ms(kernel, 10, inner=INNER),
                 plain_ms=_time_ms(lambda: _directional_pass(cost, p2, P1), 20),
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_ms=bound_ms,
+                bound_by=bound_by,
             )
         print("sgm_directional_pass " + json.dumps(row), flush=True)
         del cost, p2, out, ref
+        rows.append(row)
+    return rows
+
+
+def plain_aggregate(cost, img):
+    """`sgm_aggregate` with the plain sweeps (`_axis_sweeps`) in place of the
+    kernel's entry: the plain composite, on the tensors' device."""
+    plane_sweep.sgm_axis_sweeps = _axis_sweeps
+    try:
+        return plane_sweep.sgm_aggregate(cost, img)
+    finally:
+        plane_sweep.sgm_axis_sweeps = sgm_kernel.sgm_axis_sweeps
+
+
+def check_sgm_aggregate(dev) -> list:
+    """sgm_axis_sweeps (both axes into one total) and the card's
+    sgm_aggregate against the plain composite on the card at AGG_SHAPES,
+    with the aggregate's extra device memory; at AGG_TIMED their times
+    beside the bounds.
+
+    Bounds, with V = D*H*W*4 bytes and P = H*W*4: the two sweep calls must
+    read the volume twice and the total once and write the total twice
+    (5V + 2P); their four launches move 11V + 4P (the first writes the
+    total, three read and rewrite it). sgm_aggregate must read the cost
+    and write the result (2V + P); with its one transpose it moves
+    13V + 4P."""
+    rows = []
+    for D, H, W in AGG_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(D * 100003 + H * 101 + W)
+        cost = torch.rand((D, H, W), generator=gen, device=dev) * 255
+        img = torch.rand((H, W), generator=gen, device=dev)
+        p2x = torch.rand((H, W), generator=gen, device=dev) * 90 + 10
+        p2y = torch.rand((H, W), generator=gen, device=dev) * 90 + 10
+        vol = cost.permute(1, 2, 0).contiguous()
+
+        def sweeps():
+            total = sgm_kernel.sgm_axis_sweeps(vol, p2x, P1, 1)
+            return sgm_kernel.sgm_axis_sweeps(vol, p2y, P1, 0, total)
+
+        def plain_sweeps():
+            return _axis_sweeps(vol, p2y, P1, 0, _axis_sweeps(vol, p2x, P1, 1))
+
+        out, ref = sweeps().flatten(), plain_sweeps().flatten()
+        if (D, H, W) not in AGG_TIMED:  # and a batch of two views
+            vols = torch.stack([vol, vol.flip(0).contiguous()])
+            p2b = torch.stack([p2x, p2y])
+            total = sgm_kernel.sgm_axis_sweeps(vols, p2b, P1, 1)
+            total = sgm_kernel.sgm_axis_sweeps(vols, p2b, P1, 0, total)
+            plain = [_axis_sweeps(v, p, P1, 0, _axis_sweeps(v, p, P1, 1)) for v, p in zip(vols, p2b)]
+            out = torch.cat([out, total.flatten()])
+            ref = torch.cat([ref, torch.stack(plain).flatten()])
+        torch.cuda.synchronize()
+        sweeps_err = float((out - ref).abs().max())
+        torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+        del out, ref
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        agg = plane_sweep.sgm_aggregate(cost, img)
+        extra = torch.cuda.max_memory_allocated(dev) - base
+        ref = plain_aggregate(cost, img)
+        torch.cuda.synchronize()
+        agg_err = float((agg - ref).abs().max())
+        torch.testing.assert_close(agg, ref, atol=ATOL, rtol=RTOL)
+        del agg, ref
+        V, P = D * H * W * 4, H * W * 4
+        row = {
+            "shape": [D, H, W],
+            "sweeps_max_abs_diff": sweeps_err,
+            "aggregate_max_abs_diff": agg_err,
+            "aggregate_extra_memory_in_volumes": extra / V,
+        }
+        # the (H, W, D) copy and the total, and a few (H, W) planes for P2:
+        # a flipped or concatenated copy of the volume would not fit
+        if extra > 2 * V + 16 * P:
+            raise RuntimeError(f"sgm_aggregate at {(D, H, W)} allocated {extra} bytes, more than 2V")
+        if (D, H, W) in AGG_TIMED:
+            n_ops = 4 * SGM_OPS_PER_ELEMENT * D * H * W
+            sweeps_bound, sweeps_by = _bound(5 * V + 2 * P, n_ops)
+            agg_bound, agg_by = _bound(2 * V + P, n_ops)
+            row.update(
+                sweeps_ms=_time_ms(sweeps, 10, inner=INNER),
+                plain_sweeps_ms=_time_ms(plain_sweeps, 5),
+                sweeps_bound_ms=sweeps_bound,
+                sweeps_bound_by=sweeps_by,
+                sweeps_design_bytes_ms=_bound(11 * V + 4 * P, 0)[0],
+                aggregate_ms=_time_ms(lambda: plane_sweep.sgm_aggregate(cost, img), 10, inner=INNER),
+                plain_aggregate_ms=_time_ms(lambda: plain_aggregate(cost, img), 5),
+                aggregate_bound_ms=agg_bound,
+                aggregate_bound_by=agg_by,
+                aggregate_design_bytes_ms=_bound(13 * V + 4 * P, 0)[0],
+            )
+        print("sgm_aggregate " + json.dumps(row), flush=True)
+        del cost, img, p2x, p2y, vol
         rows.append(row)
     return rows
 
@@ -629,6 +755,44 @@ def check_ba(dev) -> list:
     return rows
 
 
+def kernels_line(rows: list, agg_rows: list, launches: dict) -> dict:
+    """The `kernels` entry of the SGM kernel, named after the entry the main
+    path launches. Its numbers are one 640x480 D = 96 map's two
+    sgm_axis_sweeps calls (four launches, per call pair over INNER
+    back-to-back pairs), its bound the least traffic of those calls (5
+    volumes), and the main path's launches. `entries` adds
+    sgm_directional_pass, with PR 1-3's yardstick: one D = 256 map's two
+    stacked sweeps, one launch between two events, against their bound."""
+    path = [r for r in rows if tuple(r["shape"]) in PATH_SHAPES]
+    map96 = next(r for r in agg_rows if tuple(r["shape"]) == AGG_TIMED[0])
+    sweeps_err = max(max(r["sweeps_max_abs_diff"], r["aggregate_max_abs_diff"]) for r in agg_rows)
+    return {
+        "name": "sgm_axis_sweeps",
+        "route": "cuda",
+        "source": "alicevision_tpu_torch/csrc/sgm_directional.cu",
+        "replaces": "alicevision_tpu/ops/sgm_pallas.py:69",
+        "launches": launches["sgm_axis_sweeps"],
+        "max_abs_err": sweeps_err,
+        "ms": map96["sweeps_ms"],
+        "plain_ms": map96["plain_sweeps_ms"],
+        "bound_ms": map96["sweeps_bound_ms"],
+        "bound_by": map96["sweeps_bound_by"],
+        "library_ms": None,
+        "aggregate": agg_rows,
+        "entries": [{
+            "name": "sgm_directional_pass",
+            "launches": launches["sgm_directional_pass"],
+            "max_abs_err": max(r["max_abs_diff"] for r in rows),
+            "ms": sum(r["kernel_ms"] for r in path),
+            "plain_ms": sum(r["plain_ms"] for r in path),
+            "bound_ms": sum(r["bound_ms"] for r in path),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in path) else "operations",
+            "library_ms": None,
+            "shapes": rows,
+        }],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)")
@@ -651,13 +815,15 @@ def main() -> int:
 
     # 2. build every kernel of the port
     for name, (sec, log) in build.build_all().items():
-        print(f"build {name}: {sec:.2f} s", flush=True)
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line or "Compiling entry" in line:
-                print("  " + line.strip(), flush=True)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [line.strip() for line in log.splitlines()
+                  if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        print(f"build {name}: {sec:.2f} s, {len(regs)} kernels, at most {max(regs, default=0)} "
+              f"registers a thread, spills: {spills or 'none'}", flush=True)
 
-    # 3. kernel against its plain version
+    # 3. kernel against its plain version, both entries
     rows = check_sgm_kernel(dev)
+    agg_rows = check_sgm_aggregate(dev)
 
     # 4. the main path
     work = tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT)
@@ -667,23 +833,38 @@ def main() -> int:
         sfm, gt = make_posed_scene(work, n_views=n_views)
         print(f"scene: {n_views} views 1280x960 rendered in {time.perf_counter() - t0:.2f} s", flush=True)
         torch.cuda.reset_peak_memory_stats(dev)
-        sgm_kernel.launches = 0
+        sgm_kernel.launches.update(dict.fromkeys(sgm_kernel.launches, 0))
         res = run_main_path(work, sfm, dev)
-        # one more depth map of view 1 at D = 320 (three register chunks)
+        # the 8 maps again at the JAX runner's D = 96, and one map of view 1
+        # at D = 320 (10 values a lane, on the width-12 kernel)
+        depth96 = os.path.join(work, "depth96")
+        t0 = time.perf_counter()
+        stages.depth_map_estimation(sfm, res["dense"], depth96, n_depths=96, n_tcams=4,
+                                    downscale=2, device=dev)
+        torch.cuda.synchronize()
+        res["seconds"]["depthMapEstimation_D96"] = time.perf_counter() - t0
         depth320 = os.path.join(work, "depth320")
         t0 = time.perf_counter()
         stages.depth_map_estimation(sfm, res["dense"], depth320, n_depths=320, n_tcams=4,
                                     downscale=2, range_start=0, range_size=1, device=dev)
         torch.cuda.synchronize()
         res["seconds"]["depthMapEstimation_D320_one_view"] = time.perf_counter() - t0
-        launches = sgm_kernel.launches
+        launches = dict(sgm_kernel.launches)
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         print("stage seconds " + json.dumps(res["seconds"]), flush=True)
         print(f"peak device memory: {peak_gib:.2f} GiB", flush=True)
+        print("SGM kernel launches " + json.dumps(launches), flush=True)
 
-        if launches != 2 * n_views + 2:
-            raise RuntimeError(f"SGM kernel launched {launches} times, expected {2 * n_views + 2}")
-        maps = [(v, res["depth"], "D=256") for v in range(n_views)] + [(0, depth320, "D=320")]
+        # sgm_aggregate: two sgm_axis_sweeps calls of two launches a map
+        expected = {"sgm_directional_pass": 0, "sgm_axis_sweeps": LAUNCHES_PER_MAP * (2 * n_views + 1)}
+        if launches != expected:
+            raise RuntimeError(f"SGM kernel launched {launches}, expected {expected}")
+        maps = (
+            [(v, res["depth"], "D=256") for v in range(n_views)]
+            + [(v, depth96, "D=96") for v in range(n_views)]
+            + [(0, depth320, "D=320")]
+        )
+        missed = []
         for v, folder, label in maps:
             path = os.path.join(folder, f"{v + 1}_depth.npy")
             if not os.path.exists(path):
@@ -695,7 +876,9 @@ def main() -> int:
             med, frac = depth_stats(depth, gt_v)
             print(f"view {v + 1} {label}: median rel depth err {med:.5f}, valid frac {frac:.3f}", flush=True)
             if not (med < 0.01 and frac > 0.30):
-                raise RuntimeError(f"view {v + 1} ({label}) misses the depth floors (<0.01, >0.30)")
+                missed.append(f"view {v + 1} ({label})")
+        if missed:
+            raise RuntimeError(f"{', '.join(missed)} miss the depth floors (<0.01, >0.30)")
         with open(res["ply"]) as f:
             header = [next(f) for _ in range(3)]
         n_ply = int(header[2].split()[-1])
@@ -714,25 +897,7 @@ def main() -> int:
     # 7. results
     print(json.dumps({"front": front}), flush=True)
     print(json.dumps({"ba": ba_rows}), flush=True)
-    path_rows = [r for r in rows if tuple(r["shape"]) in PATH_SHAPES]
-    kernel_ms = sum(r["kernel_ms"] for r in path_rows)  # one depth map's two sweeps
-    max_err = max(r["max_abs_diff"] for r in rows)
-    print(json.dumps({"kernels": [{
-        "name": "sgm_directional_pass",
-        "route": "cuda",
-        "source": "alicevision_tpu_torch/csrc/sgm_directional.cu",
-        "replaces": "alicevision_tpu/ops/sgm_pallas.py:69",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "max_abs_diff": max_err,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": sum(r["plain_ms"] for r in path_rows),
-        "bound_ms": sum(r["bound_ms"] for r in path_rows),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in path_rows) else "operations",
-        "library_ms": None,
-        "shapes": rows,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [kernels_line(rows, agg_rows, launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,13 @@ from the repository root, on a machine with a CUDA card. It renders the
 scene of chip_smoke.py's main path (8 views of 1280x960, 640x480 maps,
 D = 256, T = 4), then
 
-1. times `sgm_aggregate` on a (256, 480, 640) cost volume with CUDA events
-   beside its two kernel launches alone: the difference is the cost of the
-   transposes, flips, concatenations and sums around the kernel;
+1. times `sgm_aggregate` on a (D, 480, 640) cost volume at D = 96 (the
+   runner's default), 256 and 320 with CUDA events, beside the kernel
+   launches it makes, timed alone on the same volume, and its transpose to
+   (H, W, D) alone: the difference is the work around the kernel (the
+   transpose and P2). Then times `sgm_directional_pass` at chip_smoke.py's
+   TIMED_SHAPES, one launch between two events (PR 1-3's series) and per
+   launch over 10 back-to-back launches;
 2. traces one view's `depth_map_estimation` with torch.profiler (after one
    view of warm-up) and prints the device time by kernel, the device's
    busy share of the stage's wall time and the SGM kernel's share.
@@ -23,6 +27,7 @@ import argparse
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -40,24 +45,67 @@ from alicevision_tpu_torch.ops import sgm_kernel  # noqa: E402
 from alicevision_tpu_torch.pipeline import stages  # noqa: E402
 
 
-def aggregate_breakdown(dev, D=256, H=480, W=640, reps=20):
+def time_ms(fn, reps=10, inner=10):
+    """Median over `reps` CUDA-event timings of `inner` back-to-back calls,
+    per call, after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def aggregate_breakdown(dev, D, H=480, W=640):
     rng = np.random.RandomState(0)
     cost = torch.from_numpy((rng.rand(D, H, W) * 255).astype(np.float32)).to(dev)
     img = torch.from_numpy(rng.rand(H, W).astype(np.float32)).to(dev)
-    c_h = torch.from_numpy((rng.rand(W, 2 * H, D) * 255).astype(np.float32)).to(dev)
-    p_h = torch.from_numpy((rng.rand(W, 2 * H) * 90 + 10).astype(np.float32)).to(dev)
-    c_v = torch.from_numpy((rng.rand(H, 2 * W, D) * 255).astype(np.float32)).to(dev)
-    p_v = torch.from_numpy((rng.rand(H, 2 * W) * 90 + 10).astype(np.float32)).to(dev)
-    t_agg = chip_smoke._time_ms(lambda: sgm_aggregate(cost, img, SgmParams()), reps)
-    t_h = chip_smoke._time_ms(lambda: sgm_kernel.sgm_directional_pass(c_h, p_h, 10.0), reps)
-    t_v = chip_smoke._time_ms(lambda: sgm_kernel.sgm_directional_pass(c_v, p_v, 10.0), reps)
+    vol = cost.permute(1, 2, 0).contiguous()
+    p2x, p2y = (torch.from_numpy((rng.rand(H, W) * 90 + 10).astype(np.float32)).to(dev)
+                for _ in range(2))
+
+    def kernels():
+        total = sgm_kernel.sgm_axis_sweeps(vol, p2x, 10.0, 1)
+        sgm_kernel.sgm_axis_sweeps(vol, p2y, 10.0, 0, total)
+
+    before = sgm_kernel.launches["sgm_axis_sweeps"]
+    kernels()
+    n_launches = sgm_kernel.launches["sgm_axis_sweeps"] - before
+    t_agg = time_ms(lambda: sgm_aggregate(cost, img, SgmParams()))
+    t_k = time_ms(kernels)
     return {
         "shape": [D, H, W],
         "sgm_aggregate_ms": t_agg,
-        "kernel_h_ms": t_h,
-        "kernel_v_ms": t_v,
-        "around_kernel_ms": t_agg - t_h - t_v,
+        "kernel_launches": n_launches,
+        "kernels_ms": t_k,
+        "around_kernel_ms": t_agg - t_k,
+        "transpose_ms": time_ms(lambda: cost.permute(1, 2, 0).contiguous()),
     }
+
+
+def kernel_times(dev):
+    """sgm_directional_pass at chip_smoke.TIMED_SHAPES, ms a launch."""
+    rows = []
+    for S, N, D in chip_smoke.TIMED_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(S * 100003 + N * 101 + D)
+        cost = torch.rand((S, N, D), generator=gen, device=dev) * 100
+        p2 = torch.rand((S, N), generator=gen, device=dev) * 50 + 10
+
+        def kernel():
+            sgm_kernel.sgm_directional_pass(cost, p2, 10.0)
+
+        rows.append({"shape": [S, N, D], "kernel_ms": time_ms(kernel, reps=20, inner=1),
+                     "kernel_ms_back_to_back": time_ms(kernel)})
+        del cost, p2
+    return rows
 
 
 def trace_one_view(sfm, dense, work, dev, out_dir):
@@ -89,7 +137,7 @@ def trace_one_view(sfm, dense, work, dev, out_dir):
         key=lambda r: -r[1],
     )
     busy_ms = sum(r[1] for r in rows)
-    sgm_ms = sum(r[1] for r in rows if "sgm_directional_kernel" in r[0])
+    sgm_ms = sum(r[1] for r in rows if "sgm_sweep_" in r[0])
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "profile_dense_view.txt"), "w") as f:
@@ -116,7 +164,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip(), flush=True)
-    print("aggregate " + json.dumps(aggregate_breakdown(dev)), flush=True)
+    for D in (96, 256, 320):
+        print("aggregate " + json.dumps(aggregate_breakdown(dev, D)), flush=True)
+    print("kernel " + json.dumps(kernel_times(dev)), flush=True)
     work = tempfile.mkdtemp(prefix=".chip_smoke_profile_", dir=ROOT)
     try:
         sfm, _ = chip_smoke.make_posed_scene(work)
