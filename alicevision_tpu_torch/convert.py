@@ -3,10 +3,12 @@
 The reference package hands its state across as plain Python and numpy:
 `SgmParams._asdict()` / `SiftConfig._asdict()` for parameters,
 `dataclasses.asdict(scene)` for an `SfMData` (numpy arrays, lists, dicts),
-a `BAProblem` whose leaves went through `np.asarray`, and a `VocTree`
-whose centers do. These functions build the port's counterparts from such
-values. The `.sfm` file is the
-other carrier: a file that either package writes loads in the other.
+`dataclasses.asdict(config)` for an `IncrementalConfig`, a `BAProblem`
+whose leaves went through `np.asarray`, a `VocTree` whose centers do,
+`Tracks` as numpy arrays, and an incremental engine's host state. These
+functions build the port's counterparts from such values. The `.sfm` and
+`tracks.npz` files are the other carrier: a file that either package
+writes loads in the other.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ from .features.sift import SiftConfig
 from .matching.voctree import VocTree
 from .mvs.plane_sweep import SgmParams
 from .sfm.ba import BAProblem
+from .sfm.incremental import IncrementalConfig, IncrementalSfM, _host_intrinsics
 from .sfmdata.scene import SfMData
+from .tracks.builder import Tracks
 
 
 def sgm_params_from_reference(fields: dict) -> SgmParams:
@@ -92,3 +96,42 @@ def ba_problem_from_numpy(problem, device="cuda") -> BAProblem:
         raise ValueError(f"unknown BAProblem fields: {sorted(unknown)}")
     intr = Intrinsics(*(tensor(getattr(fields["intr"], name)) for name in Intrinsics._fields))
     return BAProblem(**{k: intr if k == "intr" else tensor(v) for k, v in fields.items()})
+
+
+def incremental_config_from_reference(fields: dict) -> IncrementalConfig:
+    """IncrementalConfig from the reference's `dataclasses.asdict(config)`."""
+    names = {f.name for f in dataclasses.fields(IncrementalConfig)}
+    unknown = set(fields) - names
+    if unknown:
+        raise ValueError(f"unknown IncrementalConfig fields: {sorted(unknown)}")
+    return IncrementalConfig(**fields)
+
+
+def tracks_from_numpy(track_ids, views, features, n_tracks) -> Tracks:
+    """The port's Tracks from the reference's arrays (copies, int32)."""
+    arrays = [np.array(a, dtype=np.int32, copy=True) for a in (track_ids, views, features)]
+    if not len(arrays[0]) == len(arrays[1]) == len(arrays[2]):
+        raise ValueError(f"track arrays of lengths {[len(a) for a in arrays]}")
+    return Tracks(*arrays, int(n_tracks))
+
+
+# the host state of an incremental engine that its steps read and write
+_ENGINE_RESULT = ("pose_R", "pose_c", "posed", "points", "point_valid")
+_ENGINE_STATE = ("obs_inlier", "obs_norm", "_focal_mean")
+
+
+def carry_engine_state(reference_engine, engine: IncrementalSfM) -> IncrementalSfM:
+    """Copy a reference engine's host state into a port engine built over
+    the same tracks and features: poses, points, validity, `obs_inlier`,
+    the normalized observations and the refined intrinsics table. The two
+    engines' next steps then start from the same state."""
+    if reference_engine.T != engine.T or len(reference_engine.obs_track) != len(engine.obs_track):
+        raise ValueError("the engines are built over different tracks")
+    for name in _ENGINE_RESULT:
+        setattr(engine.res, name, np.array(getattr(reference_engine.res, name), copy=True))
+    engine.res.history = list(reference_engine.res.history)
+    for name in _ENGINE_STATE:
+        value = getattr(reference_engine, name)
+        setattr(engine, name, float(value) if np.ndim(value) == 0 else np.array(value, copy=True))
+    engine.intr_np = _host_intrinsics([getattr(reference_engine.intr_np, n) for n in Intrinsics._fields])
+    return engine

@@ -23,6 +23,7 @@ import torch
 
 from ..geometry import Pose, pose_from_Rt
 from ..numeric import cubic_roots_real, f32_matmuls
+from .triangulation import triangulate_dlt
 
 _EPS = 1e-12
 
@@ -202,24 +203,6 @@ def decompose_essential(E: torch.Tensor):
     return R4, t4
 
 
-def _triangulate_dlt(P1, P2, x1, x2):
-    """Two-view DLT (`alicevision_tpu/multiview/triangulation.py::
-    triangulate_dlt`): the smallest right singular vector of the 4x4
-    design matrix, from eigh of its Gram matrix. -> (..., 3)."""
-    rows = torch.stack(
-        [
-            x1[..., 0, None] * P1[..., 2, :] - P1[..., 0, :],
-            x1[..., 1, None] * P1[..., 2, :] - P1[..., 1, :],
-            x2[..., 0, None] * P2[..., 2, :] - P2[..., 0, :],
-            x2[..., 1, None] * P2[..., 2, :] - P2[..., 1, :],
-        ],
-        dim=-2,
-    )  # (..., 4, 4)
-    _, V = torch.linalg.eigh(rows.transpose(-1, -2) @ rows)
-    X = V[..., :, 0]
-    return X[..., :3] / _where_small(X[..., 3:])
-
-
 def select_cheirality(R4, t4, x1, x2, mask=None):
     """Pick the (R, t) candidate with the most points in front of both views.
 
@@ -233,7 +216,7 @@ def select_cheirality(R4, t4, x1, x2, mask=None):
 
     def count_front(R, t):
         P2 = torch.cat([R, t[..., :, None]], dim=-1)
-        X = _triangulate_dlt(P1[..., None, :, :], P2[..., None, :, :], x1, x2)  # (..., N, 3)
+        X = triangulate_dlt(P1[..., None, :, :], P2[..., None, :, :], x1, x2)  # (..., N, 3)
         z1 = X[..., 2]
         Xc2 = X @ R.transpose(-1, -2) + t[..., None, :]
         z2 = Xc2[..., 2]

@@ -2,7 +2,8 @@
 
 Port of the parts of `alicevision_tpu/numeric.py` that the ported solvers
 need: `f32_matmuls`, which runs a solver with full float32 matrix products,
-and the closed-form real cubic roots of the 7-point solver.
+the closed-form real cubic roots of the 7-point solver, the Ferrari quartic
+of P3P, and homogeneous coordinates.
 """
 
 from __future__ import annotations
@@ -89,3 +90,51 @@ def cubic_roots_real(c3, c2, c1, c0):
     roots = torch.where(three, t3, t1) - (a / 3.0)[..., None]
     n_real = torch.where(disc > 0.0, 3, 1)
     return roots, n_real
+
+
+def quartic_roots_real(c4, c3, c2, c1, c0):
+    """Real roots of a quartic via Ferrari's method, branch-free and batched
+    (`alicevision_tpu/numeric.py::quartic_roots_real`).
+
+    Returns (roots (..., 4), valid (..., 4) bool). Complex roots are flagged
+    invalid (their slots hold the real part of the quadratic vertex).
+    """
+    c4 = torch.where(torch.abs(c4) < 1e-12, torch.full_like(c4, 1e-12), c4)
+    a = c3 / c4
+    b = c2 / c4
+    c = c1 / c4
+    d = c0 / c4
+    # Depressed quartic y^4 + p y^2 + q y + r with x = y - a/4.
+    p = b - 3.0 * a * a / 8.0
+    q = c - a * b / 2.0 + a**3 / 8.0
+    r = d - a * c / 4.0 + a * a * b / 16.0 - 3.0 * a**4 / 256.0
+
+    # Resolvent cubic 8 m^3 + 8 p m^2 + (2 p^2 - 8 r) m - q^2 = 0; its
+    # largest real root is >= 0 for a valid factorization.
+    m_roots, _ = cubic_roots_real(torch.full_like(p, 8.0), 8.0 * p, 2.0 * p * p - 8.0 * r, -q * q)
+    m = torch.clamp(torch.amax(m_roots, dim=-1), min=0.0)
+    s = torch.sqrt(torch.clamp(2.0 * m, min=_EPS))
+
+    # Factor into two quadratics: y^2 +- s y + (p/2 + m -+ q/(2s)).
+    t0 = p / 2.0 + m - q / (2.0 * s)
+    t1 = p / 2.0 + m + q / (2.0 * s)
+
+    def quad_roots(bq, cq):
+        disc = bq * bq / 4.0 - cq
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        return -bq / 2.0 + sq, -bq / 2.0 - sq, disc >= 0.0
+
+    y0a, y0b, ok0 = quad_roots(s, t0)
+    y1a, y1b, ok1 = quad_roots(-s, t1)
+    roots = torch.stack([y0a, y0b, y1a, y1b], dim=-1) - (a / 4.0)[..., None]
+    valid = torch.stack([ok0, ok0, ok1, ok1], dim=-1)
+    return roots, valid
+
+
+def homogeneous(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+
+
+def euclidean(xh: torch.Tensor) -> torch.Tensor:
+    w = xh[..., -1:]
+    return xh[..., :-1] / torch.where(torch.abs(w) < _EPS, torch.full_like(w, _EPS), w)

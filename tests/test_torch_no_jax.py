@@ -19,7 +19,9 @@ wanted = {"geometry.rotations", "geometry.pose", "camera.models", "utils.synthet
           "sfm.ba", "sfm.local_ba", "numeric", "convert", "ops.sgm_kernel",
           "image.filtering", "image.io", "image.exr", "utils.sensor_db", "features.sift",
           "features.io", "matching.descriptor_matching", "matching.voctree",
-          "multiview.epipolar", "robust.ransac", "robust.estimators", "pipeline.stages"}
+          "multiview.epipolar", "robust.ransac", "robust.estimators", "pipeline.stages",
+          "multiview.triangulation", "multiview.five_point", "multiview.resection", "tracks",
+          "tracks.builder", "sfm.incremental", "pipeline.runner"}
 missing = wanted - {n.split(".", 1)[1] for n in names}
 assert not missing, missing
 for name in names:
@@ -40,7 +42,7 @@ def test_port_and_chip_smoke_import_no_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 35  # every module of the slices
+    assert int(res.stdout.split()[0]) >= 50  # every module of the slices
 
 
 def test_chip_smoke_needs_cuda():
