@@ -5,8 +5,8 @@ src/aliceVision/multiview/relativePose/Fundamental7PSolver.hpp,
 Fundamental8PSolver.hpp, Essential8PSolver.hpp, Homography4PSolver.hpp).
 Every solver is closed-form batched linear algebra over fixed-size design
 matrices, batched over leading dimensions (RANSAC's hypotheses): null
-vectors from `torch.linalg.eigh` of AᵀA, rank projections from
-`torch.linalg.svd`, the 7-point cubic in closed form. Eigen- and singular
+vectors from `numeric.eigh` of AᵀA, rank projections from `numeric.svd`
+(torch's, with NaN for a non-finite matrix as JAX's), the 7-point cubic in closed form. Eigen- and singular
 vectors carry a sign (and F, H a scale) that differs between libraries;
 every model is normalized as the reference normalizes it, and compares up
 to sign.
@@ -22,7 +22,7 @@ import math
 import torch
 
 from ..geometry import Pose, pose_from_Rt
-from ..numeric import cubic_roots_real, f32_matmuls
+from ..numeric import cubic_roots_real, eigh, f32_matmuls, svd
 from .triangulation import triangulate_dlt
 
 _EPS = 1e-12
@@ -76,7 +76,7 @@ def _epipolar_design(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 def _nullvectors(A: torch.Tensor, k: int) -> torch.Tensor:
     """k smallest right singular vectors of A (..., N, 9) -> (..., k, 9)."""
     AtA = A.transpose(-1, -2) @ A
-    _, V = torch.linalg.eigh(AtA)
+    _, V = eigh(AtA)
     return V[..., :, :k].transpose(-1, -2)
 
 
@@ -98,7 +98,7 @@ def fundamental_8pt(x1: torch.Tensor, x2: torch.Tensor, mask=None) -> torch.Tens
     f = _nullvectors(A, 1)[..., 0, :]
     F = f.reshape(f.shape[:-1] + (3, 3))
     # Rank-2 projection.
-    U, s, Vt = torch.linalg.svd(F)
+    U, s, Vt = svd(F)
     s = torch.cat([s[..., :2], torch.zeros_like(s[..., 2:])], dim=-1)
     F = U @ (s[..., :, None] * Vt)
     F = T2.transpose(-1, -2) @ F @ T1
@@ -144,7 +144,7 @@ def essential_8pt(x1: torch.Tensor, x2: torch.Tensor, mask=None) -> torch.Tensor
     """8-point essential from *normalized camera* coords; projects onto the
     essential manifold (two equal singular values)."""
     F = fundamental_8pt(x1, x2, mask)
-    U, s, Vt = torch.linalg.svd(F)
+    U, s, Vt = svd(F)
     sm = 0.5 * (s[..., 0] + s[..., 1])
     s = torch.stack([sm, sm, torch.zeros_like(sm)], dim=-1)
     return U @ (s[..., :, None] * Vt)
@@ -187,7 +187,7 @@ def decompose_essential(E: torch.Tensor):
     Returns (R: (..., 4, 3, 3), t: (..., 4, 3)) — the classic U W V^T
     construction (ref: multiview/essential.cpp motionFromEssential).
     """
-    U, _, Vt = torch.linalg.svd(E)
+    U, _, Vt = svd(E)
     # Enforce det(U) = det(V) = +1 so the candidates are rotations.
     dU = torch.linalg.det(U)
     dV = torch.linalg.det(Vt)

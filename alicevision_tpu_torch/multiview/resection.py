@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..geometry.rotations import hat, so3_exp
-from ..numeric import f32_matmuls, quartic_roots_real
+from ..numeric import f32_matmuls, quartic_roots_real, svd
 
 _EPS = 1e-12
 
@@ -43,7 +43,7 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor | None = Non
     sc = src - mu_s[..., None, :]
     dc = dst - mu_d[..., None, :]
     H = (dc * w[..., None]).transpose(-1, -2) @ sc
-    U, _, Vt = torch.linalg.svd(H)
+    U, _, Vt = svd(H)
     det = torch.linalg.det(U @ Vt)
     one = torch.ones_like(det)
     R = U @ (torch.stack([one, one, det], dim=-1)[..., :, None] * Vt)

@@ -5,14 +5,15 @@ src/aliceVision/multiview/triangulation/triangulationDLT.hpp,
 Triangulation.hpp:105 N-view iterative, NViewsTriangulationLORansac.hpp:48).
 Every function is batched over leading dimensions; the N-view forms take a
 fixed observation capacity K with a validity mask instead of ragged lists.
-Null vectors come from `torch.linalg.eigh` of the 4x4 Gram matrix.
+Null vectors come from `numeric.eigh` (torch.linalg.eigh, NaN for a
+non-finite matrix) of the 4x4 Gram matrix.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..numeric import f32_matmuls
+from ..numeric import eigh, f32_matmuls
 
 _EPS = 1e-12
 
@@ -24,7 +25,7 @@ def _dehomogenize(X: torch.Tensor) -> torch.Tensor:
 
 def _smallest_right_singular(A: torch.Tensor) -> torch.Tensor:
     """Right singular vector of the smallest singular value via eigh(A^T A)."""
-    _, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    _, V = eigh(A.transpose(-1, -2) @ A)
     return V[..., :, 0]
 
 

@@ -1,0 +1,149 @@
+"""Host C++ for the port's irregular host algorithms, built at first use.
+
+Port of the max-flow half of `alicevision_tpu/native/__init__.py`: the
+graph-cut surface mesher's s-t min cut (`maxflow`), in
+`native/maxflow.cpp`, compiled with the system C++ compiler (`g++`, which
+`nvcc` itself needs) into `alicevision_tpu_torch/_build/` (listed in
+.gitignore) and loaded with ctypes. The library's file name carries a hash
+of its source and flags, so an edited source rebuilds. Unlike the
+reference there is no quiet fallback: without a compiler `maxflow` raises.
+`maxflow_plain` is the reference's fallback, scipy's integer
+`maximum_flow`, kept as the plain version the tests hold the C++ against.
+Nothing is built at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+_SRC = Path(__file__).resolve().parent / "maxflow.cpp"
+BUILD = Path(__file__).resolve().parent.parent / "_build"
+CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+
+_LIB = None
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD / f"libmaxflow-{digest}.so"
+
+
+def build() -> Path:
+    """Compile maxflow.cpp unless its library is already built; returns the
+    library's path. Raises when no C++ compiler is found or it fails."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++) found: the graph-cut max-flow needs one to build")
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([cxx, *CXX_FLAGS, str(_SRC), "-o", str(tmp)], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"{cxx} failed for native/maxflow.cpp:\n{res.stdout}{res.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    return lib
+
+
+def _load() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.bk_maxflow.restype = ctypes.c_double
+        lib.bk_maxflow.argtypes = [
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_uint8),
+        ]
+        _LIB = lib
+    return _LIB
+
+
+def _ptr(a, ct):
+    return a.ctypes.data_as(ctypes.POINTER(ct))
+
+
+def maxflow(
+    n_nodes: int,
+    edges_u: np.ndarray,
+    edges_v: np.ndarray,
+    cap: np.ndarray,
+    rev_cap: np.ndarray,
+    terminal: np.ndarray,
+):
+    """Max-flow / min-cut with terminal capacities, in the C++ library.
+
+    terminal[i] > 0: source->i capacity; < 0: i->sink capacity.
+    Returns (flow, source_side (n_nodes,) bool)."""
+    eu = np.ascontiguousarray(edges_u, np.int64).ravel()
+    ev = np.ascontiguousarray(edges_v, np.int64).ravel()
+    c = np.ascontiguousarray(cap, np.float64).ravel()
+    r = np.ascontiguousarray(rev_cap, np.float64).ravel()
+    t = np.ascontiguousarray(terminal, np.float64).ravel()
+    if not len(eu) == len(ev) == len(c) == len(r) or len(t) != n_nodes:
+        raise ValueError(f"{len(eu)}, {len(ev)} edge ends, {len(c)}, {len(r)} capacities, "
+                         f"{len(t)} terminal capacities for {n_nodes} nodes")
+    lib = _load()
+    out = np.empty(n_nodes, np.uint8)
+    flow = lib.bk_maxflow(
+        n_nodes,
+        _ptr(eu, ctypes.c_int64),
+        _ptr(ev, ctypes.c_int64),
+        _ptr(c, ctypes.c_double),
+        _ptr(r, ctypes.c_double),
+        len(eu),
+        _ptr(t, ctypes.c_double),
+        _ptr(out, ctypes.c_uint8),
+    )
+    return flow, out.astype(bool)
+
+
+def maxflow_plain(
+    n_nodes: int,
+    edges_u: np.ndarray,
+    edges_v: np.ndarray,
+    cap: np.ndarray,
+    rev_cap: np.ndarray,
+    terminal: np.ndarray,
+):
+    """`maxflow` by scipy's integer `maximum_flow` on capacities times 1000
+    (the reference's fallback): the plain version of the C++."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import breadth_first_order, maximum_flow
+
+    eu = np.asarray(edges_u, np.int64)
+    ev = np.asarray(edges_v, np.int64)
+    t = np.asarray(terminal, np.float64)
+    S, T = n_nodes, n_nodes + 1
+    scale = 1000.0
+    src = np.nonzero(t > 0)[0]
+    snk = np.nonzero(t < 0)[0]
+    rows = np.concatenate([eu, ev, np.full(len(src), S), snk])
+    cols = np.concatenate([ev, eu, src, np.full(len(snk), T)])
+    caps = np.concatenate([
+        (np.asarray(cap, np.float64) * scale).astype(np.int64),
+        (np.asarray(rev_cap, np.float64) * scale).astype(np.int64),
+        (t[src] * scale).astype(np.int64),
+        (-t[snk] * scale).astype(np.int64),
+    ])
+    g = coo_matrix((caps, (rows, cols)), shape=(n_nodes + 2, n_nodes + 2)).tocsr()
+    res = maximum_flow(g, S, T)
+    residual = g - res.flow
+    residual.data = np.maximum(residual.data, 0)
+    order = breadth_first_order(residual > 0, S, return_predecessors=False)
+    side = np.zeros(n_nodes + 2, bool)
+    side[order] = True
+    return res.flow_value / scale, side[:n_nodes]

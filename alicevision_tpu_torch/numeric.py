@@ -3,7 +3,9 @@
 Port of the parts of `alicevision_tpu/numeric.py` that the ported solvers
 need: `f32_matmuls`, which runs a solver with full float32 matrix products,
 the closed-form real cubic roots of the 7-point solver, the Ferrari quartic
-of P3P, and homogeneous coordinates.
+of P3P, and homogeneous coordinates; and `eigh` / `svd`, which give NaN for
+a matrix with a non-finite entry, as JAX's decompositions do, where
+torch's raise for the whole batch.
 """
 
 from __future__ import annotations
@@ -49,6 +51,35 @@ def f32_matmuls(fn):
             return fn(*args, **kwargs)
 
     return wrapper
+
+
+def _finite_or_zero(A: torch.Tensor):
+    """(mask of the matrices of A whose entries are all finite, A with the
+    other matrices zeroed)."""
+    ok = torch.isfinite(A).flatten(-2).all(-1)
+    return ok, torch.where(ok[..., None, None], A, torch.zeros_like(A))
+
+
+def _nan_where_not(ok: torch.Tensor, x: torch.Tensor, matrix_dims: int) -> torch.Tensor:
+    return torch.where(ok.reshape(ok.shape + (1,) * matrix_dims), x, torch.full_like(x, torch.nan))
+
+
+def eigh(A: torch.Tensor):
+    """`torch.linalg.eigh` over a batch, with NaN eigenvalues and vectors for
+    each matrix that holds a NaN or an infinity (JAX's LAPACK path returns
+    NaN there; torch raises for the whole batch). A solver fed a degenerate
+    observation then drops that one candidate, as the reference does."""
+    ok, safe = _finite_or_zero(A)
+    w, V = torch.linalg.eigh(safe)
+    return _nan_where_not(ok, w, 1), _nan_where_not(ok, V, 2)
+
+
+def svd(A: torch.Tensor):
+    """`torch.linalg.svd` (full matrices) with NaN factors for each matrix
+    that holds a non-finite entry, as `eigh`."""
+    ok, safe = _finite_or_zero(A)
+    U, s, Vt = torch.linalg.svd(safe)
+    return _nan_where_not(ok, U, 2), _nan_where_not(ok, s, 1), _nan_where_not(ok, Vt, 2)
 
 
 def cbrt(x: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ either package reads the other's:
   dense images: <viewId>.npy
   depth:        <viewId>_depth.npy / _sim.npy
   cloud:        ASCII PLY
+  mesh:         OBJ
 Every stage takes `device` ("cuda" by default; it raises when no CUDA
 device exists unless the caller passes "cpu") and computes its tensors
 there; cameraInit reads files and EXIF only, on the host.
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 
 import numpy as np
 import torch
@@ -770,3 +772,73 @@ def meshing_point_cloud(
             f"{p[0]} {p[1]} {p[2]} {c[0]} {c[1]} {c[2]}\n" for p, c in zip(pts, cols)
         )
     return pts
+
+
+def meshing_surface(
+    input_sfm: str,
+    depth_folder: str,
+    output_obj: str,
+    voxel_size: float = 0.0,
+    downscale: int = 2,
+    max_points: int = 50000,
+    smooth_iters: int = 3,
+    images_folder: str | None = None,
+    device="cuda",
+    seconds: dict | None = None,
+) -> tuple:
+    """Graph-cut surface from fused depth maps (main_meshing equivalent):
+    fuse on `device` -> at most `max_points` points, drawn by
+    RandomState(0) -> Delaunay + visibility cut on the host -> largest
+    component -> Taubin smooth on `device` -> optional per-vertex colour
+    bake -> OBJ. Returns (vertices float32, faces int32) as host arrays. A
+    `seconds` dict gets the wall seconds by step (fuse, subsample, delaunay,
+    votes, cut, facets, largest_component, smooth, bake, write)."""
+    from ..mesh import bake_vertex_colors, graph_cut_surface, largest_component, laplacian_smooth, save_obj
+    from ..mvs.fusion import fuse_point_cloud
+
+    dev = resolve_device(device)
+    seconds = {} if seconds is None else seconds
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        now = time.perf_counter()
+        seconds[name] = now - t0
+        t0 = now
+
+    sc = sfmdata.load(input_sfm)
+    depths, Ks, Rs, cs, ids = _posed_depth_maps(sc, depth_folder, downscale, np.float64)
+    if not depths:
+        raise FileNotFoundError(
+            f"no '<viewId>_depth.npy' maps found in {depth_folder!r} — run "
+            "depthMapEstimation/depthMapFiltering first"
+        )
+    Ks, Rs, cs = np.stack(Ks), np.stack(Rs), np.stack(cs)
+    pts, _, views = fuse_point_cloud(np.stack(depths), None, Ks, Rs, cs, voxel_size=voxel_size, device=dev)
+    lap("fuse")
+    if len(pts) > max_points:
+        sel = np.random.RandomState(0).choice(len(pts), max_points, replace=False)
+        pts, views = pts[sel], views[sel]
+    lap("subsample")
+    verts, faces = graph_cut_surface(pts, np.arange(len(pts)), cs[views], seconds=seconds)
+    t0 = time.perf_counter()
+    verts, faces = largest_component(verts, faces)
+    lap("largest_component")
+    if smooth_iters:
+        v = laplacian_smooth(torch.as_tensor(verts, dtype=torch.float32, device=dev), faces,
+                             iterations=smooth_iters)
+        verts = v.cpu().numpy()
+    lap("smooth")
+    colors = None
+    if images_folder is not None:
+        imgs = []
+        for vid in ids:
+            img = read_image(os.path.join(images_folder, f"{vid}.npy"), grayscale=True)
+            if downscale > 1:
+                img = img[::downscale, ::downscale]
+            imgs.append(img)
+        colors = bake_vertex_colors(verts, faces, imgs, Ks, Rs, cs, depth_maps=depths)
+    lap("bake")
+    save_obj(output_obj, verts, faces, colors)
+    lap("write")
+    return verts, faces

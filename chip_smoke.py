@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's dense depth-map path with all its branches,
-its SfM front end, its whole main path (images to point cloud) and its
-bundle adjuster once on one GPU.
+its SfM front end, its whole main path (images to point cloud), its
+surface mesher, the hard scene (images to poses) and its bundle adjuster
+once on one GPU.
 
     python3 chip_smoke.py
 
@@ -9,7 +10,8 @@ from the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit (`nvcc`). It
 
 1. prints the card's name and power limit (nvidia-smi) and turns TF32 off;
-2. builds every CUDA source of the port (`alicevision_tpu_torch/csrc/`);
+2. builds every CUDA source of the port (`alicevision_tpu_torch/csrc/`) and
+   its host C++ max-flow (`native/maxflow.cpp`, with g++);
 3. holds the SGM kernel's two entries against their plain PyTorch versions
    on the card: `sgm_directional_pass` at the reference's test shapes,
    ragged ones, D past 512 (the carry in shared memory, up to the
@@ -62,14 +64,30 @@ toolkit (`nvcc`). It
    1024 cameras / 300k landmarks through matrix-free PCG — timing LM
    iterations per second and checking convergence, then solves a mid-size
    problem on the CPU and on the card and holds the two results together;
-9. prints a `dense_full`, a `front`, a `pipeline`, a `ba` and a `kernels`
-   JSON line and, last, `{"ok": true, "device": ...}`.
+9. the `mesh_surface` phase (after step 4): depthMapFiltering of the D = 96
+   maps and `meshing_surface` (fusion on the card, Delaunay, the
+   visibility graph cut in the port's C++ max-flow, the largest component,
+   a Taubin smooth on the card, OBJ), checking the mesh's size, indices and
+   distance to the box world, with its seconds by step;
+10. the `hard_scene` phase (after step 7): the engine on the 40-view
+   ground-truth-projection matches of `hard_scene` at the normal and the
+   stressed prior (tests/test_hard_scene.py's gates and golden file), then
+   bench.py's images path at the reference's operating point: 40 distorted
+   1280x960 views rendered on the card (two held against the host numpy
+   render), DSP-SIFT at 10,000 keypoints,
+   voctree pairs, matching and incrementalSfm (at least 39 of 40 posed,
+   ATE < 1.2 % of the radius), with stage seconds, peak memory and the
+   engine's seconds by step;
+11. prints a `mesh_surface`, a `hard_scene`, a `dense_full`, a `front`, a
+   `pipeline`, a `ba` and a `kernels` JSON line and, last,
+   `{"ok": true, "device": ...}`.
 
 Every failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA device; `make_posed_scene`, `run_main_path`, `run_front`,
-`front_report`, `run_pipeline`, `pipeline_report`, the bench scenes and the
-BA problem builders also run on the CPU at small sizes (the port's tests
-call them so).
+`front_report`, `run_pipeline`, `pipeline_report`, `run_mesh_surface`,
+`run_hard_scene_engine`, `run_hard_images`, the bench scenes and the BA
+problem builders also run on the CPU at small sizes (the port's tests call
+some of them so).
 """
 
 from __future__ import annotations
@@ -89,7 +107,7 @@ import numpy as np
 import torch
 
 from alicevision_tpu_torch import camera as cam
-from alicevision_tpu_torch import sfmdata
+from alicevision_tpu_torch import native, sfmdata
 from alicevision_tpu_torch.geometry import mat_to_quat, quat_to_mat
 from alicevision_tpu_torch.mvs import plane_sweep
 from alicevision_tpu_torch.mvs.plane_sweep import _axis_sweeps, _directional_pass
@@ -1302,6 +1320,337 @@ def check_ba(dev) -> list:
     return rows
 
 
+# --------------------------------------------------------- mesh_surface
+
+# Checks of the mesh_surface phase: meshing_surface on the dense phase's
+# D = 96 maps, filtered at the stage's default (3 consistent views), of the
+# 8-view scene. The mesh must hold at least what the surface half of
+# tests/test_pipeline_e2e.py asks (more than 500 faces, more than 300
+# vertices, every face index valid). The rendered background is a flat 0.5,
+# where SGM's costs tie, and some of its depths survive the filtering in
+# both packages (a CPU run of the port at half this size: 49k background
+# pixels beside 198k surface ones, 1.5 % of the mesh's vertices outside the
+# box world, up to z = 2.8): so at least MESH_IN_BOX_FRAC of the vertices
+# must lie within the box world's bounds (default_boxes) padded by
+# MESH_BOX_MARGIN, and the median distance from a vertex to the box world's
+# surface must be under MESH_MEDIAN_DIST scene units (ring radius 6; the
+# D = 96 maps' median relative errors of 0.0016-0.0062 at depths of 4-8 are
+# 0.01-0.05 units; the CPU run: 0.0147).
+MESH_MIN_FACES, MESH_MIN_VERTS = 500, 300
+MESH_BOX_MARGIN, MESH_IN_BOX_FRAC = 0.25, 0.95
+MESH_MEDIAN_DIST = 0.05
+
+
+def box_surface_distance(p: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """Distance from each point (P, 3) to the nearest box face of the box
+    world (N, 2, 3): outside a box the Euclidean distance to it, inside the
+    distance to its nearest face."""
+    q = p[:, None, :]
+    lo, hi = boxes[None, :, 0], boxes[None, :, 1]
+    outside = np.linalg.norm(np.maximum(np.maximum(lo - q, q - hi), 0.0), axis=-1)
+    inside = np.minimum(q - lo, hi - q).min(-1)
+    return np.where(outside > 0, outside, np.maximum(inside, 0.0)).min(1)
+
+
+def run_mesh_surface(work: str, sfm: str, depth: str, device):
+    """depthMapFiltering of the maps in `depth` and meshing_surface, both at
+    the stages' defaults, writing under `work`, with the SGM launch counts
+    set to 0 just before and read just after (the surface path launches
+    none). Returns (vertices, faces, the stage's seconds by step, the
+    filtering's seconds, the launches)."""
+    filtered = os.path.join(work, "filtered_mesh")
+    sgm_kernel.launches.update(dict.fromkeys(sgm_kernel.launches, 0))
+    t0 = time.perf_counter()
+    stages.depth_map_filtering(sfm, depth, filtered, device=device)
+    filter_s = time.perf_counter() - t0
+    seconds = {}
+    verts, faces = stages.meshing_surface(sfm, filtered, os.path.join(work, "mesh.obj"), device=device,
+                                          seconds=seconds)
+    return verts, faces, seconds, filter_s, dict(sgm_kernel.launches)
+
+
+def check_mesh_surface(dev, work: str, sfm: str, depth96: str) -> dict:
+    """The mesh_surface phase on the dense phase's D = 96 maps."""
+    from alicevision_tpu_torch.mesh import load_obj
+    from alicevision_tpu_torch.utils.rendered import default_boxes
+
+    verts, faces, seconds, filter_s, launches = run_mesh_surface(work, sfm, depth96, dev)
+    boxes = default_boxes()
+    lo, hi = boxes[:, 0].min(0) - MESH_BOX_MARGIN, boxes[:, 1].max(0) + MESH_BOX_MARGIN
+    inside = ((verts >= lo) & (verts <= hi)).all(1)
+    dist = box_surface_distance(verts.astype(np.float64), boxes)
+    lv, lf = load_obj(os.path.join(work, "mesh.obj"))
+    row = {
+        "vertices": int(len(verts)), "faces": int(len(faces)),
+        "faces_valid": bool(len(faces) and faces.min() >= 0 and faces.max() < len(verts)),
+        "obj_round_trip": bool(len(lf) == len(faces) and len(lv) == len(verts)),
+        "frac_in_box_world": float(inside.mean()),
+        "median_dist_to_surface": float(np.median(dist)),
+        "p90_dist_to_surface": float(np.percentile(dist, 90)),
+        "filtering_s": filter_s, "stage_seconds": seconds, "stage_s": sum(seconds.values()),
+        "sgm_launches": launches,
+    }
+    print("mesh_surface " + json.dumps(row), flush=True)
+    bad = []
+    if not (row["faces"] > MESH_MIN_FACES and row["vertices"] > MESH_MIN_VERTS and row["faces_valid"]
+            and row["obj_round_trip"]):
+        bad.append(f"{row['faces']} faces, {row['vertices']} vertices, indices valid {row['faces_valid']}, "
+                   f"OBJ read back {row['obj_round_trip']}")
+    if not inside.mean() >= MESH_IN_BOX_FRAC:
+        bad.append(f"{inside.mean():.4f} of the vertices within the box world padded by {MESH_BOX_MARGIN}, "
+                   f"expected at least {MESH_IN_BOX_FRAC}")
+    if not row["median_dist_to_surface"] < MESH_MEDIAN_DIST:
+        bad.append(f"median distance to the surface {row['median_dist_to_surface']:.4f}, "
+                   f"expected below {MESH_MEDIAN_DIST}")
+    if any(launches.values()):
+        bad.append(f"SGM launches {launches}, expected none")
+    if bad:
+        raise RuntimeError("mesh_surface: " + "; ".join(bad))
+    return row
+
+
+# ----------------------------------------------------------- hard_scene
+
+# Checks of the hard_scene phase (tests/test_hard_scene.py and
+# tests/test_hard_scene_images.py, bench.py:698-849). The ground-truth
+# projection path runs the engine at its defaults with robust
+# triangulation on the 40-view matches, under the normal prior (focal 2 %
+# off, zero K3) and the stressed one (10 % off, principal point at (20,
+# -12) px); the images path renders the ring at the reference's operating
+# point and runs the front end and the engine on the pixels.
+HARD_VIEWS, HARD_POINTS = 40, 600
+HARD_GATES = {
+    "normal": dict(min_posed=38, ate=0.01, focal=0.01, k1=0.03, golden=0.02),
+    "stressed": dict(min_posed=36, ate=0.015, focal=0.02, k1=0.06, pp=0.65),
+}
+HARD_PRIORS = {"normal": dict(focal=1.02, offset=(0.0, 0.0)), "stressed": dict(focal=1.10, offset=(20.0, -12.0))}
+HARD_GOLDEN = os.path.join(ROOT, "tests", "golden", "hard_scene_poses.npz")
+HARD_IMG = dict(wh=(1280, 960), focal_px=900.0, max_keypoints=10000, n_neighbors=6)
+HARD_IMG_MIN_POSED, HARD_IMG_ATE = 39, 0.012
+# The card's render against the host numpy render (render_hard_views_numpy)
+# of two views at full size: within RENDER_ATOL on all but at most
+# RENDER_MAX_FLIPPED of the pixels, tests/test_torch_hard_scene.py's bound
+# (a texel boundary or a silhouette that float64 sums in another order put
+# on the other side; the CPU run has none).
+RENDER_CHECK_VIEWS = (0, 20)
+RENDER_ATOL, RENDER_MAX_FLIPPED = 1e-6, 1e-3
+
+
+def _ate_rel(est: np.ndarray, gt: np.ndarray, c_all: np.ndarray):
+    """Camera-centre ATE after a similarity alignment, over the radius of
+    the whole ring (bench.py's hard-scene measure), and the aligned
+    centres."""
+    s, R, t = _align_similarity(est, gt)
+    aligned = est @ (s * R).T + t
+    ate = float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, axis=1))))
+    radius = float(np.linalg.norm(c_all - c_all.mean(0), axis=1).mean())
+    return ate / radius, aligned
+
+
+def _engine_rms_px(engine) -> float:
+    """RMS reprojection error of the engine's final model, pixels."""
+    m = engine._obs_table_mask()
+    problem = engine._make_problem(m, cam_fixed=~engine.res.posed)
+    return float(ba.rms_reprojection_error(problem, problem.cam_q, problem.cam_c, problem.points))
+
+
+def run_hard_scene_engine(device, prior: str = "normal"):
+    """tests/test_hard_scene.py's run through the port: hard_scene(40, 600)
+    -> verified_matches_from_scene -> build_tracks -> IncrementalSfM with a
+    RADIALK3 prior of zeros. Returns (the scene, the engine, its seconds)."""
+    from alicevision_tpu_torch.sfm.incremental import IncrementalConfig, IncrementalSfM
+    from alicevision_tpu_torch.tracks.builder import build_tracks
+    from alicevision_tpu_torch.utils.rendered import hard_scene, verified_matches_from_scene
+
+    hs = hard_scene(HARD_VIEWS, HARD_POINTS)
+    pm, fxy, nf = verified_matches_from_scene(hs)
+    tracks = build_tracks(pm, nf, min_track_length=2)
+    w, h = hs.image_size
+    pr = HARD_PRIORS[prior]
+    intr = cam.make_intrinsics(w, h, float(hs.K[0, 0]) * pr["focal"], disto_kind=cam.DISTO_RADIALK3,
+                               disto_params=(0.0, 0.0, 0.0), offset=pr["offset"])
+    intr = cam.Intrinsics(*(x[None] for x in intr))
+    engine = IncrementalSfM(tracks, fxy, intr, np.zeros(HARD_VIEWS, np.int32), np.tile([w, h], (HARD_VIEWS, 1)),
+                            IncrementalConfig(robust_triangulation=True, seed=0), device=device)
+    t0 = time.perf_counter()
+    engine.process()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return hs, engine, time.perf_counter() - t0
+
+
+def hard_scene_report(hs, engine, prior: str) -> tuple:
+    """The engine's result against the truth and the prior's gates: (row,
+    the gates it misses)."""
+    res, intr = engine.res, engine.intr_np
+    posed = np.nonzero(res.posed)[0]
+    ate, _ = _ate_rel(res.pose_c[posed], hs.c[posed], hs.c)
+    f, k1, pp = float(intr.scale[0, 0]), float(intr.disto[0, 0]), intr.offset[0].astype(np.float64)
+    g = HARD_GATES[prior]
+    row = {
+        "posed": int(len(posed)), "ate_frac_of_radius": ate,
+        "focal_px": intr.scale[0].tolist(), "focal_true": float(hs.K[0, 0]),
+        "k1": k1, "k1_true": float(hs.disto[0]), "disto": intr.disto[0, :3].tolist(),
+        "pp_offset_px": pp.tolist(), "landmarks": int(res.point_valid.sum()), "rms_px": _engine_rms_px(engine),
+        "step_seconds": dict(engine.seconds),
+    }
+    bad = []
+    if len(posed) < g["min_posed"]:
+        bad.append(f"{len(posed)} of {HARD_VIEWS} posed, expected at least {g['min_posed']}")
+    if not ate < g["ate"]:
+        bad.append(f"ATE {ate:.5f} of the radius, expected below {g['ate']}")
+    if not abs(f - hs.K[0, 0]) / hs.K[0, 0] < g["focal"]:
+        bad.append(f"focal {f:.2f}, expected within {g['focal']:.0%} of {hs.K[0, 0]}")
+    if not abs(k1 - hs.disto[0]) < g["k1"]:
+        bad.append(f"k1 {k1:.4f}, expected within {g['k1']} of {hs.disto[0]}")
+    if "pp" in g:
+        prior_off = np.linalg.norm(HARD_PRIORS[prior]["offset"])
+        if not np.linalg.norm(pp) < g["pp"] * prior_off:
+            bad.append(f"principal point offset {pp}, expected within {g['pp']} x {prior_off:.1f} px")
+    if "golden" in g:
+        gold = np.load(HARD_GOLDEN)
+        both = np.intersect1d(posed, gold["posed"])
+        _, a = _ate_rel(res.pose_c[both], hs.c[both], hs.c)
+        _, b = _ate_rel(gold["pose_c"][both], hs.c[both], hs.c)
+        row["golden_max_drift"] = float(np.linalg.norm(a - b, axis=1).max())
+        row["golden_views_compared"] = int(len(both))
+        if not row["golden_max_drift"] < g["golden"]:
+            bad.append(f"aligned centres {row['golden_max_drift']:.4f} from the golden run, expected < {g['golden']}")
+    return row, bad
+
+
+def hard_images_config(wh=HARD_IMG["wh"]):
+    """The engine's configuration on the images path (bench.py:822-836):
+    seed 0 and the outlier gate scaled with the image diagonal, 4 *
+    hypot(W, H) / 800 px (8 px at 1280x960), where the reference's 4 px
+    culls correct border matches of a zero-K3 prior."""
+    from alicevision_tpu_torch.sfm.incremental import IncrementalConfig
+
+    return IncrementalConfig(seed=0, max_reproj_px=4.0 * math.hypot(*wh) / 800.0)
+
+
+def run_hard_images(work: str, device, wh=HARD_IMG["wh"], focal_px: float = HARD_IMG["focal_px"],
+                    max_keypoints: int = HARD_IMG["max_keypoints"]):
+    """bench.py's images path (bench.py:764-849) through the port's stages:
+    render_hard_views on `device` -> .npy images -> cameraInit with the
+    focal 2 % off -> featureExtraction (DSP-SIFT at full resolution,
+    `max_keypoints`) -> voctree imageMatching -> featureMatching ->
+    incrementalSfm with the resolution-scaled gate 4 * hypot(W, H) / 800
+    px. `wh`, `focal_px` and `max_keypoints` are the reference's operating
+    point; smaller ones rehearse the path on the CPU. Returns (the stage
+    seconds, each stage's peak device memory in GiB, the output scene, the
+    true centres)."""
+    from alicevision_tpu_torch.utils.rendered import render_hard_views
+
+    cuda = torch.device(device).type == "cuda"
+    seconds, peak = {}, {}
+
+    def timed(name, fn, *args, **kw):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated(device) / 2**30
+        seconds[name] = time.perf_counter() - t0
+        return res
+
+    imgs, _, _, _, c_gt = timed("render", render_hard_views, HARD_VIEWS, wh, focal_px=focal_px, device=device)
+    img_dir = os.path.join(work, "hard_images")
+    os.makedirs(img_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    for v in range(HARD_VIEWS):
+        np.save(os.path.join(img_dir, f"view_{v:03d}.npy"), imgs[v])
+    seconds["save_npy"] = time.perf_counter() - t0
+    scene = os.path.join(work, "hard_cameraInit.sfm")
+    feats = os.path.join(work, "hard_features")
+    pairs = os.path.join(work, "hard_pairs.txt")
+    matches = os.path.join(work, "hard_matches.npz")
+    timed("cameraInit", stages.camera_init, img_dir, scene, default_focal_px=focal_px * 1.02, device=device)
+    timed("featureExtraction", stages.feature_extraction, scene, feats, max_keypoints=max_keypoints,
+          downscale_to=0, describer_types="dspsift", device=device)
+    timed("imageMatching", stages.image_matching, scene, feats, pairs, method="voctree",
+          n_neighbors=HARD_IMG["n_neighbors"], device=device)
+    timed("featureMatching", stages.feature_matching, scene, feats, pairs, matches, device=device)
+    out = timed("incrementalSfm", stages.incremental_sfm, scene, feats, matches,
+                os.path.join(work, "hard_sfm.sfm"), config=hard_images_config(wh), device=device)
+    return seconds, peak, out, c_gt
+
+
+def compare_hard_render(img_dir: str, views=RENDER_CHECK_VIEWS) -> dict:
+    """The images the card rendered into `img_dir` against the host numpy
+    render of the same views: the share of pixels more than RENDER_ATOL
+    apart, and the largest difference among the others."""
+    from alicevision_tpu_torch.utils.rendered import render_hard_views_numpy
+
+    t0 = time.perf_counter()
+    plain = render_hard_views_numpy(HARD_VIEWS, HARD_IMG["wh"], focal_px=HARD_IMG["focal_px"], views=views)[0]
+    card = np.stack([np.load(os.path.join(img_dir, f"view_{v:03d}.npy")) for v in views])
+    diff = np.abs(card - plain)
+    flipped = diff > RENDER_ATOL
+    return {"views": list(views), "flipped_frac": float(flipped.mean()),
+            "max_abs_diff_unflipped": float(diff[~flipped].max(initial=0.0)),
+            "max_abs_diff": float(diff.max()), "host_render_s": time.perf_counter() - t0}
+
+
+def check_hard_scene(dev, work: str, card: str) -> dict:
+    """The hard_scene phase: the engine on the ground-truth-projection
+    matches at the normal and the stressed prior, then the images path at
+    the reference's operating point, each with the SGM launch counts set to
+    0 just before and read just after (the SfM path launches none)."""
+    row, bad = {"card": card}, []
+    for prior in ("normal", "stressed"):
+        sgm_kernel.launches.update(dict.fromkeys(sgm_kernel.launches, 0))
+        torch.cuda.reset_peak_memory_stats(dev)
+        hs, engine, sec = run_hard_scene_engine(dev, prior)
+        rep, miss = hard_scene_report(hs, engine, prior)
+        rep.update(engine_s=sec, peak_device_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                   sgm_launches=dict(sgm_kernel.launches))
+        row[f"gt_projection_{prior}"] = rep
+        print(f"hard_scene {prior} prior " + json.dumps(rep), flush=True)
+        bad += [f"{prior} prior: {m}" for m in miss]
+        del engine
+
+    sgm_kernel.launches.update(dict.fromkeys(sgm_kernel.launches, 0))
+    seconds, peak, out, c_gt = run_hard_images(work, dev)
+    engine = stages.last_engine
+    vp = out.view_pose
+    posed = [v for v in range(HARD_VIEWS) if vp[v] >= 0]
+    ate, _ = _ate_rel(np.stack([out.pose_c[vp[v]] for v in posed]), c_gt[posed], c_gt)
+    feats = os.path.join(work, "hard_features")
+    img = {
+        "wh": list(HARD_IMG["wh"]), "max_keypoints": HARD_IMG["max_keypoints"],
+        "posed": len(posed), "ate_frac_of_radius": ate,
+        "focal_px": out.scale[0].tolist(), "focal_true": HARD_IMG["focal_px"],
+        "k1": float(out.disto[0][0]), "k1_true": -0.25,
+        "rms_px": _engine_rms_px(engine),
+        "keypoints_per_view": [int(stages.load_features(feats, int(i))["valid"].sum()) for i in out.view_ids],
+        "pairs": int(len(stages.load_pairs(os.path.join(work, "hard_pairs.txt")))),
+        "inliers_total": int(sum(len(m) for m in stages.load_matches(os.path.join(work, "hard_matches.npz")).values())),
+        "tracks": int(engine.T), "landmarks": int(engine.res.point_valid.sum()),
+        "stage_seconds": seconds, "stage_peak_device_gib": peak,
+        "engine_step_seconds": dict(engine.seconds),
+        "sgm_launches": dict(sgm_kernel.launches),
+        "render_vs_host": compare_hard_render(os.path.join(work, "hard_images")),
+    }
+    row["images"] = img
+    print("hard_scene images " + json.dumps(img), flush=True)
+    if len(posed) < HARD_IMG_MIN_POSED:
+        bad.append(f"images path: {len(posed)} of {HARD_VIEWS} posed, expected at least {HARD_IMG_MIN_POSED}")
+    if not ate < HARD_IMG_ATE:
+        bad.append(f"images path: ATE {ate:.5f} of the radius, expected below {HARD_IMG_ATE}")
+    if not img["render_vs_host"]["flipped_frac"] <= RENDER_MAX_FLIPPED:
+        bad.append(f"the card's render against the host's: {img['render_vs_host']}")
+    runs = [img] + [row[f"gt_projection_{p}"] for p in HARD_PRIORS]
+    if any(n for r in runs for n in r["sgm_launches"].values()):
+        bad.append("the SfM path launched the SGM kernel")
+    if bad:
+        raise RuntimeError("hard_scene: " + "; ".join(bad))
+    return row
+
+
 def kernels_line(rows: list, agg_rows: list, launches: dict) -> dict:
     """The `kernels` entry of the SGM kernel, named after the entry the main
     path launches. Its numbers are one 640x480 D = 96 map's two
@@ -1367,6 +1716,9 @@ def main() -> int:
                   if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
         print(f"build {name}: {sec:.2f} s, {len(regs)} kernels, at most {max(regs, default=0)} "
               f"registers a thread, spills: {spills or 'none'}", flush=True)
+    t0 = time.perf_counter()
+    print(f"build native/maxflow.cpp (g++, the graph cut's max-flow): {native.build().name} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernel against its plain version, both entries
     rows = check_sgm_kernel(dev)
@@ -1433,6 +1785,9 @@ def main() -> int:
         if n_ply != res["n_points"] or n_ply <= 5000:
             raise RuntimeError(f"cloud.ply holds {n_ply} points, expected more than 5000")
 
+        # 4b. the graph-cut surface mesher on the D = 96 maps
+        mesh_surface = check_mesh_surface(dev, work, sfm, depth96)
+
         # 5. the rest of the dense stages: Refine, normals, tiles, guided
         # filtering, and bench.py's dense points
         dense_full, full_launches = check_dense_full(dev, work, sfm, gt, res["dense"], depth96, n_views, smi)
@@ -1442,13 +1797,19 @@ def main() -> int:
 
         # 7. the whole main path, images to cloud.ply, on the same images
         pipe, pipe_launches = check_pipeline(dev, work, os.path.join(work, "images"), sfm, gt)
+
+        # 8. the hard scene: the engine on 40 distorted views, and the images
+        # path at the reference's operating point
+        hard = check_hard_scene(dev, work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 8. the bundle adjuster
+    # 9. the bundle adjuster
     ba_rows = check_ba(dev)
 
-    # 9. results
+    # 10. results
+    print(json.dumps({"mesh_surface": mesh_surface}), flush=True)
+    print(json.dumps({"hard_scene": hard}), flush=True)
     print(json.dumps({"dense_full": dense_full}), flush=True)
     print(json.dumps({"front": front}), flush=True)
     print(json.dumps({"pipeline": pipe}), flush=True)

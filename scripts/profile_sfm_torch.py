@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of the port's incremental SfM goes, on one GPU.
 
-    python3 scripts/profile_sfm_torch.py [--out DIR]
+    python3 scripts/profile_sfm_torch.py [--scene arc|hard] [--out DIR]
 
 from the repository root, on a machine with a CUDA card. On chip_smoke.py's
-rendered 8-view 1280x960 scene it runs the four front stages once (the
-runner's 4096 keypoints, 28 exhaustive pairs), then the incrementalSfm
-stage on their files:
+rendered 8-view 1280x960 arc (`--scene arc`, the default) it runs the four
+front stages once (the runner's 4096 keypoints, 28 exhaustive pairs); on
+the hard scene (`--scene hard`) it runs chip_smoke.py's images path (40
+distorted 1280x960 views, DSP-SIFT at 10,000 keypoints, voctree pairs, the
+8-px gate). Then the incrementalSfm stage on their files:
 
 1. once as a warm-up, once with its host syncs counted (CUDA's
    synchronization debug mode), once under torch.profiler;
@@ -39,7 +41,7 @@ import chip_smoke  # noqa: E402
 from alicevision_tpu_torch.pipeline import stages  # noqa: E402
 
 
-def profile_stage(fn, out_dir) -> dict:
+def profile_stage(fn, out_dir, scene: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -64,7 +66,7 @@ def profile_stage(fn, out_dir) -> dict:
     busy_ms = sum(r[1] for r in rows)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "profile_sfm.txt"), "w") as f:
+        with open(os.path.join(out_dir, f"profile_sfm_{scene}.txt"), "w") as f:
             f.write(events.table(sort_by="self_cuda_time_total", row_limit=80))
     hist = engine.res.history
     return {
@@ -85,6 +87,8 @@ def profile_stage(fn, out_dir) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("arc", "hard"), default="arc",
+                    help="the 8-view arc, or the hard scene's 40-view images path")
     ap.add_argument("--out", default=None, help="directory for the profiler's table")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -99,15 +103,21 @@ def main() -> int:
 
     work = tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT)
     try:
-        chip_smoke.make_posed_scene(work)
-        front = chip_smoke.run_front(os.path.join(work, "front"), os.path.join(work, "images"), dev)
-        print("front_seconds " + json.dumps(front["seconds"]), flush=True)
+        if args.scene == "hard":
+            seconds, _, _, _ = chip_smoke.run_hard_images(work, dev)
+            files = [os.path.join(work, f) for f in ("hard_cameraInit.sfm", "hard_features", "hard_matches.npz")]
+            config = chip_smoke.hard_images_config()
+        else:
+            chip_smoke.make_posed_scene(work)
+            front = chip_smoke.run_front(os.path.join(work, "front"), os.path.join(work, "images"), dev)
+            seconds = front["seconds"]
+            files, config = [front["sfm"], front["feats"], front["matches"]], None
+        print("front_seconds " + json.dumps(seconds), flush=True)
 
         def stage():
-            return stages.incremental_sfm(front["sfm"], front["feats"], front["matches"],
-                                          os.path.join(work, "sfm.sfm"), device=dev)
+            return stages.incremental_sfm(*files, os.path.join(work, "sfm.sfm"), config=config, device=dev)
 
-        print("incremental_sfm " + json.dumps(profile_stage(stage, args.out)), flush=True)
+        print("incremental_sfm " + json.dumps(profile_stage(stage, args.out, args.scene)), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0

@@ -22,7 +22,8 @@ wanted = {"geometry.rotations", "geometry.pose", "camera.models", "utils.synthet
           "multiview.epipolar", "robust.ransac", "robust.estimators", "pipeline.stages",
           "multiview.triangulation", "multiview.five_point", "multiview.resection", "tracks",
           "tracks.builder", "sfm.incremental", "pipeline.runner", "ops.guided_filter",
-          "mvs.normals", "mvs.refine", "mvs.sharded"}
+          "mvs.normals", "mvs.refine", "mvs.sharded", "utils.rendered", "native", "mesh.ops",
+          "mesh.delaunay_graphcut", "mesh.texturing", "mesh"}
 missing = wanted - {n.split(".", 1)[1] for n in names}
 assert not missing, missing
 for name in names:
