@@ -3,13 +3,17 @@
 
 `.npy` is read and written with numpy alone; it is the image format of the
 main path on machines without an image codec library. EXR goes through the
-port's own scanline reader and writer (`image/exr.py`). Other formats, and
-EXIF, import `imageio` and PIL lazily, as the reference does.
+port's own scanline reader and writer (`image/exr.py`), and 8-bit PNG
+through the standard library's zlib (`write_png`, `read_png`), so that
+texturing's atlas is written and read back without a codec. Other formats,
+and EXIF, import `imageio` and PIL lazily, as the reference does.
 """
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
 import numpy as np
 
@@ -35,9 +39,108 @@ def _read_exr_any(path: str):
         return img
 
 
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# colour type by channel count, and back (gray, gray+alpha, RGB, RGBA)
+_PNG_COLOR = {1: 0, 2: 4, 3: 2, 4: 6}
+_PNG_CHANNELS = {v: k for k, v in _PNG_COLOR.items()}
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write a uint8 (H, W[, C]) array, C in 1..4, as an 8-bit
+    non-interlaced PNG (filter 0 on every row)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"PNG takes uint8 pixels, not {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, ch = img.shape
+    if ch not in _PNG_COLOR:
+        raise ValueError(f"PNG takes 1 to 4 channels, not {ch}")
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), np.ascontiguousarray(img).reshape(h, -1)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR[ch], 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIG + _png_chunk(b"IHDR", ihdr)
+                + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _png_chunk(b"IEND", b""))
+
+
+def _unfilter(data: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the five PNG row filters (None, Sub, Up, Average, Paeth). Sub
+    and Up are whole-row sums; Average and Paeth step along the row a
+    pixel (bpp bytes) at a time."""
+    rows = data.reshape(h, stride + 1)
+    out = np.zeros((h, stride // bpp, bpp), np.int32)
+    prev = np.zeros((stride // bpp, bpp), np.int32)
+    for y in range(h):
+        kind, line = rows[y, 0], rows[y, 1:].astype(np.int32).reshape(-1, bpp)
+        if kind == 0:
+            cur = line
+        elif kind == 1:
+            cur = np.cumsum(line, axis=0) & 0xFF
+        elif kind == 2:
+            cur = (line + prev) & 0xFF
+        elif kind in (3, 4):
+            cur = np.zeros_like(line)
+            a = c = np.zeros(bpp, np.int32)
+            for x in range(len(line)):
+                b = prev[x]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    p = a + b - c
+                    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+                    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+                cur[x] = (line[x] + pred) & 0xFF
+                a, c = cur[x], b
+        else:
+            raise ValueError(f"unknown PNG row filter {kind}")
+        out[y] = cur
+        prev = cur
+    return out.reshape(h, stride).astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read a non-interlaced 8-bit gray, gray+alpha, RGB or RGBA PNG ->
+    uint8 (H, W) or (H, W, C). Other variants (palette, interlace, other
+    bit depths) raise ValueError."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    if blob[:8] != _PNG_SIG:
+        raise ValueError(f"not a PNG file: {path}")
+    pos, idat, hdr = 8, [], None
+    while pos < len(blob):
+        (n,) = struct.unpack(">I", blob[pos : pos + 4])
+        kind, data = blob[pos + 4 : pos + 8], blob[pos + 8 : pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", data)
+        elif kind == b"IDAT":
+            idat.append(data)
+        elif kind == b"IEND":
+            break
+    w, h, depth, color, _, _, interlace = hdr
+    if depth != 8 or color not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"unsupported PNG variant (depth {depth}, colour type {color}, interlace {interlace})")
+    ch = _PNG_CHANNELS[color]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    img = _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
+    return img[..., 0] if ch == 1 else img
+
+
 def read_image(path: str, grayscale: bool = False) -> np.ndarray:
     """Read an image -> float32 in [0, 1], (H, W[, 3])."""
-    if path.endswith(".npy"):
+    img = None
+    if path.lower().endswith(".png"):
+        try:
+            img = read_png(path)
+        except ValueError:
+            pass  # a variant the reader does not take: imageio below
+    if img is not None:
+        pass
+    elif path.endswith(".npy"):
         img = np.load(path)
     elif path.endswith(".exr") and os.path.exists(path + ".npy"):
         img = np.load(path + ".npy")  # legacy no-EXR-codec fallback files
@@ -71,10 +174,13 @@ def write_image(path: str, img: np.ndarray) -> None:
 
         write_exr(path, img.astype(np.float32))
         return
-    import imageio.v2 as imageio
-
     if img.dtype in (np.float32, np.float64):
         img = np.clip(img * 255.0, 0, 255).astype(np.uint8)
+    if path.lower().endswith(".png") and img.dtype == np.uint8:
+        write_png(path, img)
+        return
+    import imageio.v2 as imageio
+
     imageio.imwrite(path, img)
 
 

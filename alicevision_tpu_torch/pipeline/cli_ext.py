@@ -1,0 +1,741 @@
+"""The long tail of `av-torch` subcommands: the `command` registry.
+
+Port of `alicevision_tpu/pipeline/cli_ext.py`: every subcommand of the
+reference's registry keeps its parser (the same flags and defaults), so
+`build_parser` is the reference's whole parser. The subcommands whose
+modules are ported run here; the others exit 1 naming ROADMAP item 13.
+Handlers compute on `args.dev`, the device `cli.py` resolved.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+_COMMANDS: list = []  # (name, setup_fn, handler_fn), in the reference's order
+
+
+def command(name, setup):
+    def deco(fn):
+        _COMMANDS.append((name, setup, fn))
+        return fn
+
+    return deco
+
+
+def register(sub, add_common) -> None:
+    for name, setup, handler in _COMMANDS:
+        p = sub.add_parser(name)
+        setup(p)
+        add_common(p)
+        p.set_defaults(_handler=handler)
+
+
+def _not_ported(args):
+    raise NotImplementedError(f"{args.cmd} is not ported yet (ROADMAP item 13)")
+
+
+def _ensure_parent(path):
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+
+
+def _setup_merge(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--input2", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--alignment", action="store_true",
+                   help="align the second scene onto the first before merging")
+
+
+command("sfmMerge", _setup_merge)(_not_ported)
+
+
+def _setup_split(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True, help="reconstructed part")
+    p.add_argument("--outputNonReconstructed", default=None)
+
+
+command("sfmSplitReconstructed", _setup_split)(_not_ported)
+
+
+def _setup_align(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--reference", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--noScale", action="store_true")
+
+
+def _sfm_alignment(args):
+    """ref: src/software/utils/main_sfmAlignment.cpp"""
+    from .. import sfmdata
+    from ..sfm.alignment import align_to_scene
+
+    sc = sfmdata.load(args.input)
+    align_to_scene(sc, sfmdata.load(args.reference), with_scale=not args.noScale)
+    sfmdata.save(sc, args.output)
+
+
+command("sfmAlignment", _setup_align)(_sfm_alignment)
+
+
+def _setup_transfer(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--reference", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--method", default="from_viewid",
+                   choices=["from_viewid", "from_filepath"])
+    p.add_argument("--transferPoses", action="store_true", default=True)
+    p.add_argument("--transferIntrinsics", action="store_true")
+
+
+command("sfmTransfer", _setup_transfer)(_not_ported)
+
+
+def _setup_applycal(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--calibration", required=True,
+                   help="calibrated .sfm or checkerboardCalibration .json")
+    p.add_argument("--output", required=True)
+
+
+command("applyCalibration", _setup_applycal)(_not_ported)
+
+
+def _setup_distances(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--landmarksA", default="", help="comma-separated ids")
+    p.add_argument("--landmarksB", default="", help="comma-separated ids")
+
+
+command("sfmDistances", _setup_distances)(_not_ported)
+
+
+def _setup_regression(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--reference", required=True)
+    p.add_argument("--maxRotationDeg", type=float, default=1.0)
+    p.add_argument("--maxCenterDist", type=float, default=0.1)
+
+
+command("sfmRegression", _setup_regression)(_not_ported)
+
+
+def _setup_harmonize(p):
+    p.add_argument("--input", required=True, help=".sfm")
+    p.add_argument("--features", required=True, help="features folder")
+    p.add_argument("--matches", required=True)
+    p.add_argument("--imagesFolder", required=True)
+    p.add_argument("--output", required=True, help="folder of harmonized images")
+
+
+command("sfmColorHarmonize", _setup_harmonize)(_not_ported)
+
+
+def _setup_relpose(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--features", required=True)
+    p.add_argument("--matches", required=True)
+    p.add_argument("--output", required=True, help="relative poses .npz")
+
+
+command("relativePoseEstimating", _setup_relpose)(_not_ported)
+
+
+def _setup_globalsfm(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--features", required=True)
+    p.add_argument("--matches", required=True)
+    p.add_argument("--relativePoses", default=None,
+                   help="precomputed .npz from relativePoseEstimating")
+    p.add_argument("--output", required=True)
+    p.add_argument("--minTrackLength", type=int, default=2)
+
+
+command("globalSfM", _setup_globalsfm)(_not_ported)
+
+
+def _setup_triangulate(p):
+    p.add_argument("--input", required=True, help="posed .sfm")
+    p.add_argument("--features", required=True)
+    p.add_argument("--tracks", default=None, help="tracks .npz")
+    p.add_argument("--matches", default=None, help="or matches .npz")
+    p.add_argument("--output", required=True)
+    p.add_argument("--minTrackLength", type=int, default=2)
+
+
+def _triangulate_known_poses(args):
+    """Triangulate the tracks of a posed scene with its poses held
+    (ref: src/software/pipeline/main_sfmTriangulation.cpp,
+    main_computeStructureFromKnownPoses.cpp)."""
+    import numpy as np
+
+    from .. import sfmdata
+    from ..sfm.incremental import IncrementalConfig, IncrementalSfM
+    from ..tracks.builder import Tracks, build_tracks
+    from .stages import load_features, load_matches
+
+    sc = sfmdata.load(args.input)
+    feats = {v: load_features(args.features, int(sc.view_ids[v])) for v in range(sc.n_views)}
+    if args.tracks:
+        with np.load(args.tracks) as z:
+            tracks = Tracks(z["track_ids"], z["views"], z["features"], int(z["n_tracks"]))
+    elif args.matches:
+        tracks = build_tracks(load_matches(args.matches), {v: len(feats[v]["xy"]) for v in feats},
+                              min_track_length=args.minTrackLength)
+    else:
+        raise RuntimeError("give --tracks or --matches")
+    engine = IncrementalSfM(
+        tracks, {v: feats[v]["xy"] for v in feats}, sc.intrinsics_table(),
+        view_intrinsic=sc.view_intrinsic, image_sizes=sc.view_sizes,
+        config=IncrementalConfig(), device=args.dev,
+    )
+    for v in range(sc.n_views):
+        p = int(sc.view_pose[v])
+        if p >= 0:
+            engine.res.pose_R[v] = sc.pose_R[p]
+            engine.res.pose_c[v] = sc.pose_c[p]
+            engine.res.posed[v] = True
+    engine.triangulate_all()
+    out = engine.to_sfmdata(view_ids=sc.view_ids)
+    out.view_paths = list(sc.view_paths)
+    sfmdata.save(out, args.output)
+    print(json.dumps({"landmarks": out.n_landmarks}))
+
+
+command("sfmTriangulation", _setup_triangulate)(_triangulate_known_poses)
+
+
+command("computeStructureFromKnownPoses", _setup_triangulate)(_triangulate_known_poses)
+
+
+def _setup_select_connected(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--matches", required=True)
+    p.add_argument("--output", required=True, help="kept view-id list file")
+    p.add_argument("--minLinks", type=int, default=1)
+
+
+def _select_connected_views(args):
+    """ref: src/software/pipeline/main_selectConnectedViews.cpp"""
+    import numpy as np
+
+    from .. import sfmdata
+    from .stages import load_matches
+
+    sc = sfmdata.load(args.input)
+    links = np.zeros(sc.n_views, np.int64)
+    for (i, j), m in load_matches(args.matches).items():
+        if len(m):
+            links[i] += 1
+            links[j] += 1
+    keep = np.nonzero(links >= args.minLinks)[0]
+    _ensure_parent(args.output)
+    with open(args.output, "w") as f:
+        for v in keep:
+            f.write(f"{int(sc.view_ids[v])}\n")
+    print(json.dumps({"kept": len(keep), "total": sc.n_views}))
+
+
+command("selectConnectedViews", _setup_select_connected)(_select_connected_views)
+
+
+def _setup_frustum(p):
+    p.add_argument("--input", required=True, help="posed .sfm")
+    p.add_argument("--output", required=True, help="pair list file")
+    p.add_argument("--zNear", type=float, default=None)
+    p.add_argument("--zFar", type=float, default=None)
+
+
+command("frustumFiltering", _setup_frustum)(_not_ported)
+
+
+def _setup_colored_cloud(p):
+    p.add_argument("--input", required=True)
+    p.add_argument(
+        "--imagesFolder",
+        default="",
+        help="prepared-image folder (<viewId>.npy); when given, landmarks "
+        "are colorized from observation pixels before export",
+    )
+    p.add_argument("--output", required=True, help=".ply")
+
+
+def _export_colored_point_cloud(args):
+    """Colorize landmarks from their observation pixels (colorizeTracks
+    greedy view assignment) and write the colored PLY.
+    ref: src/software/export/main_exportColoredPointCloud.cpp,
+    src/aliceVision/sfmData/colorize.cpp:23-123"""
+    from .. import sfmdata
+
+    sc = sfmdata.load(args.input)
+    if args.imagesFolder:
+        sfmdata.colorize_tracks(sc, sfmdata.npy_folder_loader(sc, args.imagesFolder))
+    _ensure_parent(args.output)
+    sfmdata.save_ply(sc, args.output)
+    print(json.dumps({"points": int(len(sc.points)), "colorized": bool(args.imagesFolder)}))
+
+
+command("exportColoredPointCloud", _setup_colored_cloud)(_export_colored_point_cloud)
+
+
+def _setup_export_keypoints(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--features", required=True)
+    p.add_argument("--output", required=True, help="folder of SVGs")
+
+
+command("exportKeypoints", _setup_export_keypoints)(_not_ported)
+
+
+def _setup_export_matches(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--features", required=True)
+    p.add_argument("--matches", required=True)
+    p.add_argument("--output", required=True, help="folder of SVGs")
+
+
+command("exportMatches", _setup_export_matches)(_not_ported)
+
+
+def _setup_export_tracks(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--tracks", required=True)
+    p.add_argument("--features", required=True)
+    p.add_argument("--output", required=True, help="SVG path")
+    p.add_argument("--maxTracks", type=int, default=500)
+
+
+command("exportTracks", _setup_export_tracks)(_not_ported)
+
+
+def _setup_import_middlebury(p):
+    p.add_argument("--input", required=True, help="*_par.txt")
+    p.add_argument("--imagesFolder", default=None)
+    p.add_argument("--output", required=True, help=".sfm")
+
+
+command("importMiddlebury", _setup_import_middlebury)(_not_ported)
+
+
+def _setup_sample_scene(p):
+    p.add_argument("--output", required=True, help=".sfm")
+    p.add_argument("--nbViews", type=int, default=10)
+    p.add_argument("--nbPoints", type=int, default=100)
+    p.add_argument("--noisePx", type=float, default=0.0)
+    p.add_argument("--seed", type=int, default=0)
+
+
+command("generateSampleScene", _setup_sample_scene)(_not_ported)
+
+
+def _setup_voctree_query(p):
+    p.add_argument("--tree", required=True, help="tree .npz from voctreeCreation")
+    p.add_argument("--input", required=True, help=".sfm")
+    p.add_argument("--features", required=True)
+    p.add_argument("--output", default=None, help="pair list file")
+    p.add_argument("--nbNeighbors", type=int, default=10)
+
+
+command("voctreeQueryUtility", _setup_voctree_query)(_not_ported)
+
+
+def _setup_voctree_stats(p):
+    p.add_argument("--tree", required=True)
+
+
+command("voctreeStatistics", _setup_voctree_stats)(_not_ported)
+
+
+def _setup_depth_render(p):
+    p.add_argument("--input", required=True, help="posed .sfm")
+    p.add_argument("--mesh", required=True)
+    p.add_argument("--output", required=True, help="folder of <viewId>_depth.npy")
+    p.add_argument("--downscale", type=int, default=4)
+
+
+def _scene_cams(sc, downscale=1):
+    cams = []
+    for v in sc.valid_views():
+        K, R, c = sc.camera_matrices(v)
+        w, h = sc.view_sizes[v]
+        if downscale > 1:
+            K = K.copy()
+            K[:2] /= downscale
+            w, h = w // downscale, h // downscale
+        cams.append((int(sc.view_ids[v]), K, R, c, (int(h), int(w))))
+    return cams
+
+
+def _depth_map_rendering(args):
+    """ref: src/software/pipeline/main_depthMapRendering.cpp"""
+    import numpy as np
+
+    from .. import sfmdata
+    from ..mesh import load_obj
+    from ..mesh.render import render_depth_map
+
+    sc = sfmdata.load(args.input)
+    V, F = load_obj(args.mesh)
+    os.makedirs(args.output, exist_ok=True)
+    n = 0
+    for vid, K, R, c, hw in _scene_cams(sc, args.downscale):
+        depth, _ = render_depth_map(V, F, K, R, c, hw, device=args.dev)
+        np.save(os.path.join(args.output, f"{vid}_depth.npy"), depth)
+        n += 1
+    print(json.dumps({"rendered": n}))
+
+
+command("depthMapRendering", _setup_depth_render)(_depth_map_rendering)
+
+
+def _setup_normal_render(p):
+    p.add_argument("--input", required=True, help="posed .sfm")
+    p.add_argument("--mesh", required=True)
+    p.add_argument("--output", required=True, help="folder of <viewId>_normal.npy")
+    p.add_argument("--downscale", type=int, default=4)
+    p.add_argument("--worldFrame", action="store_true")
+
+
+def _normal_map_rendering(args):
+    """ref: src/software/pipeline/main_normalMapRendering.cpp"""
+    import numpy as np
+
+    from .. import sfmdata
+    from ..mesh import load_obj
+    from ..mesh.render import render_normal_map
+
+    sc = sfmdata.load(args.input)
+    V, F = load_obj(args.mesh)
+    os.makedirs(args.output, exist_ok=True)
+    n = 0
+    for vid, K, R, c, hw in _scene_cams(sc, args.downscale):
+        normals, _ = render_normal_map(V, F, K, R, c, hw, camera_frame=not args.worldFrame, device=args.dev)
+        np.save(os.path.join(args.output, f"{vid}_normal.npy"), normals)
+        n += 1
+    print(json.dumps({"rendered": n}))
+
+
+command("normalMapRendering", _setup_normal_render)(_normal_map_rendering)
+
+
+def _setup_unseen(p):
+    p.add_argument("--input", required=True, help="posed .sfm")
+    p.add_argument("--mesh", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--minObservations", type=int, default=1)
+    p.add_argument("--downscale", type=int, default=4)
+
+
+def _mesh_remove_unseen(args):
+    """ref: src/software/pipeline/main_meshRemoveUnseenFaces.cpp"""
+    from .. import sfmdata
+    from ..mesh import load_obj, save_obj
+    from ..mesh.render import remove_unseen_faces
+
+    sc = sfmdata.load(args.input)
+    V, F = load_obj(args.mesh)
+    cams = [(K, R, c, hw) for _, K, R, c, hw in _scene_cams(sc, args.downscale)]
+    V2, F2 = remove_unseen_faces(V, F, cams, min_views=args.minObservations, device=args.dev)
+    save_obj(args.output, V2, F2)
+    print(json.dumps({"faces_in": int(len(F)), "faces_out": int(len(F2))}))
+
+
+command("meshRemoveUnseenFaces", _setup_unseen)(_mesh_remove_unseen)
+
+
+def _setup_merge_meshes(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--input2", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--weldEps", type=float, default=0.0)
+
+
+def _merge_meshes(args):
+    """ref: src/software/pipeline/main_mergeMeshes.cpp"""
+    from ..mesh import load_obj, merge_meshes, save_obj
+
+    v1, f1 = load_obj(args.input)
+    v2, f2 = load_obj(args.input2)
+    v, f = merge_meshes(v1, f1, v2, f2, weld_eps=args.weldEps)
+    save_obj(args.output, v, f)
+    print(json.dumps({"vertices": int(len(v)), "faces": int(len(f))}))
+
+
+command("mergeMeshes", _setup_merge_meshes)(_merge_meshes)
+
+
+def _setup_checker_detect(p):
+    p.add_argument("--input", required=True, help="image or folder")
+    p.add_argument("--output", required=True, help="corners .json")
+    p.add_argument("--rows", type=int, required=True)
+    p.add_argument("--cols", type=int, required=True)
+
+
+command("checkerboardDetection", _setup_checker_detect)(_not_ported)
+
+
+def _setup_camera_calibration(p):
+    p.add_argument("--input", required=True, help="image folder")
+    p.add_argument("--output", required=True, help="calibration .json")
+    p.add_argument("--rows", type=int, required=True)
+    p.add_argument("--cols", type=int, required=True)
+    p.add_argument("--squareSize", type=float, default=1.0)
+
+
+command("cameraCalibration", _setup_camera_calibration)(_not_ported)
+
+
+def _setup_disto_calib(p):
+    p.add_argument("--input", required=True, help=".sfm")
+    p.add_argument("--checkerboards", required=True,
+                   help="corners .json from checkerboardDetection")
+    p.add_argument("--output", required=True, help=".sfm with distortion")
+    p.add_argument("--nbParams", type=int, default=3)
+    p.add_argument("--undistortionModelName", default="none",
+                   choices=["none", "radialk3", "3deanamorphic4",
+                            "3declassicld", "3deradial4"],
+                   help="fit an Undistortion-family (3DE) model instead of "
+                        "the RADIALK3 distortion "
+                        "(ref: main_distortionCalibration.cpp)")
+
+
+command("distortionCalibration", _setup_disto_calib)(_not_ported)
+
+
+def _setup_convert_disto(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--to", required=True,
+                   choices=["none", "radialk1", "radialk3", "brown", "fisheye4",
+                            "fisheye1"])
+
+
+command("convertDistortion", _setup_convert_disto)(_not_ported)
+
+
+def _setup_export_disto(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True, help="output folder")
+
+
+command("exportDistortion", _setup_export_disto)(_not_ported)
+
+
+def _setup_ps(p):
+    p.add_argument("--inputFolder", required=True, help="images, one per light")
+    p.add_argument("--lights", required=True,
+                   help="lights .json ({\"directions\": [[x,y,z],...]}) or .npy")
+    p.add_argument("--output", required=True, help="output folder")
+    p.add_argument("--integrate", action="store_true", help="also write depth")
+
+
+command("photometricStereo", _setup_ps)(_not_ported)
+
+
+def _setup_ni(p):
+    p.add_argument("--input", required=True, help="normals .npy (H,W,3)")
+    p.add_argument("--output", required=True, help="depth .npy")
+
+
+command("normalIntegration", _setup_ni)(_not_ported)
+
+
+def _setup_le(p):
+    p.add_argument("--normals", required=True, help="normals .npy")
+    p.add_argument("--image", required=True, help="shaded image")
+    p.add_argument("--albedo", default=None)
+    p.add_argument("--output", required=True, help="SH coefficients .json")
+
+
+command("lightingEstimation", _setup_le)(_not_ported)
+
+
+def _setup_lc(p):
+    p.add_argument("--inputFolder", required=True)
+    p.add_argument("--sphere", default=None,
+                   help="cx,cy,r — detected automatically when omitted")
+    p.add_argument("--output", required=True, help="lights .json")
+
+
+command("lightingCalibration", _setup_lc)(_not_ported)
+
+
+def _setup_sphere(p):
+    p.add_argument("--input", required=True, help="image")
+    p.add_argument("--output", required=True, help="detection .json")
+    p.add_argument("--minRadius", type=int, default=8)
+    p.add_argument("--maxRadius", type=int, default=64)
+
+
+command("sphereDetection", _setup_sphere)(_not_ported)
+
+
+def _setup_image_masking(p):
+    p.add_argument("--input", required=True, help="image or folder")
+    p.add_argument("--output", required=True, help="mask png or folder")
+    p.add_argument("--algorithm", default="hsv",
+                   choices=["hsv", "autoGrayscaleThreshold"],
+                   help="masking algorithm (ref main_imageMasking.cpp:95)")
+    p.add_argument("--hsvMin", default="0,0,0")
+    p.add_argument("--hsvMax", default="1,1,1")
+    p.add_argument("--invert", action="store_true")
+    p.add_argument("--growRadius", type=int, default=0,
+                   help="dilate the mask (ref main_imageMasking.cpp:144)")
+    p.add_argument("--shrinkRadius", type=int, default=0,
+                   help="erode the mask (ref main_imageMasking.cpp:146)")
+
+
+command("imageMasking", _setup_image_masking)(_not_ported)
+
+
+def _setup_camera_loc(p):
+    p.add_argument("--input", required=True, help="reconstructed .sfm")
+    p.add_argument("--features", required=True, help="features of the scene views")
+    p.add_argument("--queryFolder", required=True, help="images to localize")
+    p.add_argument("--output", required=True, help="poses .json")
+    p.add_argument("--maxKeypoints", type=int, default=2048)
+    p.add_argument("--downscaleTo", type=int, default=1024)
+    p.add_argument("--method", default="voctree", choices=["voctree", "direct"],
+                   help="voctree: retrieval-restricted matching "
+                        "(VoctreeLocalizer.hpp); direct: landmark index")
+
+
+command("cameraLocalization", _setup_camera_loc)(_not_ported)
+
+
+def _setup_rig_calib(p):
+    p.add_argument("--inputs", required=True,
+                   help="comma-separated posed .sfm, one per rig camera")
+    p.add_argument("--output", required=True, help="rig .json")
+
+
+command("rigCalibration", _setup_rig_calib)(_not_ported)
+
+
+def _setup_rig_transform(p):
+    p.add_argument("--input", required=True, help="rig-trajectory .sfm (cam 0)")
+    p.add_argument("--rig", required=True, help="rig .json from rigCalibration")
+    p.add_argument("--camera", type=int, required=True, help="sub-camera index")
+    p.add_argument("--output", required=True)
+
+
+command("rigTransform", _setup_rig_transform)(_not_ported)
+
+
+def _setup_rig_loc(p):
+    p.add_argument("--input", required=True, help="reconstructed .sfm")
+    p.add_argument("--features", required=True)
+    p.add_argument("--queryFolders", required=True,
+                   help="comma-separated folders, one per rig camera")
+    p.add_argument("--rig", required=True, help="rig .json")
+    p.add_argument("--output", required=True, help="rig poses .json")
+    p.add_argument(
+        "--fusion", default="joint", choices=["joint", "average"],
+        help="joint = non-central resection over ALL rig cameras at once "
+        "(rigResection.cpp); average = legacy per-camera + quaternion mean",
+    )
+
+
+command("rigLocalization", _setup_rig_loc)(_not_ported)
+
+
+def _setup_sfm_to_rig(p):
+    p.add_argument("--input", required=True, help="posed .sfm")
+    p.add_argument("--output", required=True, help="rig .json")
+
+
+command("sfmToRig", _setup_sfm_to_rig)(_not_ported)
+
+
+def _setup_pano_prepare(p):
+    p.add_argument("--inputFolder", required=True)
+    p.add_argument("--output", required=True, help="output folder")
+    p.add_argument("--downscaleTo", type=int, default=0)
+
+
+command("panoramaPrepareImages", _setup_pano_prepare)(_not_ported)
+
+
+def _setup_pano_init(p):
+    p.add_argument("--imageFolder", required=True)
+    p.add_argument("--output", required=True, help=".sfm with yaw-init poses")
+    p.add_argument("--fisheye", action="store_true")
+    p.add_argument("--defaultFocalPx", type=float, default=None)
+    p.add_argument("--nbViewsPerRow", type=int, default=0,
+                   help="0 = single ring; else rows x cols rig pattern")
+
+
+command("panoramaInit", _setup_pano_init)(_not_ported)
+
+
+def _setup_pano_seams(p):
+    p.add_argument("--input", required=True, help="warped folder")
+    p.add_argument("--output", required=True, help="labels .npy")
+
+
+command("panoramaSeams", _setup_pano_seams)(_not_ported)
+
+
+def _setup_pano_merge(p):
+    p.add_argument("--input", required=True, help="warped folder")
+    p.add_argument("--seams", default=None, help="labels .npz from panoramaSeams")
+    p.add_argument("--output", required=True, help="panorama image")
+    p.add_argument("--levels", type=int, default=5)
+
+
+command("panoramaMerging", _setup_pano_merge)(_not_ported)
+
+
+def _setup_pano_post(p):
+    p.add_argument("--input", required=True, help="panorama image")
+    p.add_argument("--output", required=True)
+    p.add_argument("--fillHoles", action="store_true")
+    p.add_argument("--crop", action="store_true")
+
+
+command("panoramaPostProcessing", _setup_pano_post)(_not_ported)
+
+
+def _setup_cc_detect(p):
+    p.add_argument("--input", required=True, help="image or folder")
+    p.add_argument("--output", required=True, help="detections .json")
+
+
+command("colorCheckerDetection", _setup_cc_detect)(_not_ported)
+
+
+def _setup_cc_correct(p):
+    p.add_argument("--input", required=True, help="image or folder")
+    p.add_argument("--detections", required=True, help="from colorCheckerDetection")
+    p.add_argument("--output", required=True, help="image or folder")
+
+
+command("colorCheckerCorrection", _setup_cc_correct)(_not_ported)
+
+
+def _setup_export_mvstex(p):
+    p.add_argument("--input", required=True, help="posed .sfm")
+    p.add_argument("--output", required=True, help="output folder")
+
+
+command("exportMVSTexturing", _setup_export_mvstex)(_not_ported)
+
+
+def _setup_export_matlab(p):
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True, help="output folder")
+
+
+command("exportMatlab", _setup_export_matlab)(_not_ported)
+
+
+def _setup_export_mmaya(p):
+    p.add_argument("--input", required=True, help="reconstructed .sfm")
+    p.add_argument("--output", required=True, help="output folder")
+    p.add_argument("--images", default=None, help="undistorted images folder")
+
+
+command("exportMeshroomMaya", _setup_export_mmaya)(_not_ported)

@@ -412,6 +412,15 @@ def _tracks_from_files(sc, features_folder, matches_file, min_track_length):
     return tracks, {v: f["xy"] for v, f in feats.items()}
 
 
+def _save_engine(sc, engine, output_sfm):
+    """The engine's reconstruction, with the input scene's view ids and
+    image paths, -> .sfm."""
+    out = engine.to_sfmdata(view_ids=sc.view_ids)
+    out.view_paths = list(sc.view_paths)
+    sfmdata.save(out, output_sfm)
+    return out
+
+
 # The engine of the last incremental_sfm call (its history, step seconds and
 # result), for the callers that report on it.
 last_engine = None
@@ -448,10 +457,7 @@ def incremental_sfm(
     )
     last_engine = engine
     engine.process()
-    out = engine.to_sfmdata(view_ids=sc.view_ids)
-    out.view_paths = list(sc.view_paths)
-    sfmdata.save(out, output_sfm)
-    return out
+    return _save_engine(sc, engine, output_sfm)
 
 
 def tracks_building(
@@ -473,12 +479,56 @@ def tracks_building(
     )
 
 
+def _engine_from_files(input_sfm, features_folder, tracks_file, device="cuda"):
+    """The incremental engine over tracks.npz and the features, with any
+    poses already in the scene adopted (the reference's SfM augmentation)
+    and their tracks triangulated."""
+    from ..sfm.incremental import IncrementalConfig, IncrementalSfM
+    from ..tracks.builder import Tracks
+
+    dev = resolve_device(device)
+    sc = sfmdata.load(input_sfm)
+    with np.load(tracks_file) as z:
+        tr = Tracks(z["track_ids"], z["views"], z["features"], int(z["n_tracks"]))
+    engine = IncrementalSfM(
+        tr,
+        {v: load_features(features_folder, int(sc.view_ids[v]))["xy"] for v in range(sc.n_views)},
+        sc.intrinsics_table(),
+        view_intrinsic=sc.view_intrinsic,
+        image_sizes=sc.view_sizes,
+        config=IncrementalConfig(),
+        device=dev,
+    )
+    for v in range(sc.n_views):
+        p = int(sc.view_pose[v])
+        if p >= 0:
+            engine.res.pose_R[v] = sc.pose_R[p]
+            engine.res.pose_c[v] = sc.pose_c[p]
+            engine.res.posed[v] = True
+    if engine.res.posed.any():
+        engine.triangulate_all()
+    return sc, engine
+
+
 def sfm_bootstrapping(input_sfm: str, features_folder: str, tracks_file: str, output_sfm: str, device="cuda"):
-    _not_ported("sfmBootstrapping (sfm/expansion.py)", "13, the rest of SfM")
+    """The initial pair and its first bundle (ExpansionProcess.bootstrap)
+    -> .sfm (main_sfmBootstraping.cpp:307-343)."""
+    from ..sfm.expansion import ExpansionProcess
+
+    sc, engine = _engine_from_files(input_sfm, features_folder, tracks_file, device=device)
+    if not ExpansionProcess(engine).bootstrap():
+        raise RuntimeError("bootstrap failed")
+    _save_engine(sc, engine, output_sfm)
 
 
 def sfm_expanding(input_sfm: str, features_folder: str, tracks_file: str, output_sfm: str, device="cuda"):
-    _not_ported("sfmExpanding (sfm/expansion.py)", "13, the rest of SfM")
+    """Expansion from the scene's poses (or a bootstrap when it has none)
+    until no view can be added -> .sfm (main_sfmExpanding.cpp:206-211)."""
+    from ..sfm.expansion import ExpansionProcess
+
+    sc, engine = _engine_from_files(input_sfm, features_folder, tracks_file, device=device)
+    ExpansionProcess(engine).process()
+    _save_engine(sc, engine, output_sfm)
 
 
 # ---------------------------------------------------------------------------

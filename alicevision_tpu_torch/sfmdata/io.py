@@ -1,5 +1,6 @@
 """Reference-compatible .sfm/.json scene IO (host copy of
-`alicevision_tpu/sfmdata/io.py`'s JSON reader and writer).
+`alicevision_tpu/sfmdata/io.py`'s JSON reader and writer, and its PLY and
+BAF exports).
 
 Reads and writes the AliceVision JSON scene schema
 (ref: src/aliceVision/sfmDataIO/jsonIO.cpp — views :24-49, intrinsics
@@ -364,12 +365,78 @@ def load_sfm(path: str) -> SfMData:
     return scene
 
 
+def save_ply(scene: SfMData, path: str) -> None:
+    """Write the structure (+ camera centers) as an ASCII PLY point cloud."""
+    pts = scene.points
+    cols = scene.colors if len(scene.colors) == len(pts) else np.full(
+        (len(pts), 3), 255, np.uint8
+    )
+    cams = scene.pose_c
+    n = len(pts) + len(cams)
+    with open(path, "w") as f:
+        f.write(
+            "ply\nformat ascii 1.0\n"
+            f"element vertex {n}\n"
+            "property double x\nproperty double y\nproperty double z\n"
+            "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+            "end_header\n"
+        )
+        for p, c in zip(pts, cols):
+            f.write(f"{p[0]} {p[1]} {p[2]} {c[0]} {c[1]} {c[2]}\n")
+        for p in cams:
+            f.write(f"{p[0]} {p[1]} {p[2]} 0 255 0\n")
+
+
+def save_baf(scene: SfMData, path: str) -> None:
+    """Bundle-Adjustment File export (write-only, like the reference)
+    (ref: sfmDataIO/bafIO.cpp:18-102 — header counts, intrinsic params,
+    per-view [R col-major | C], landmarks with observations, plus the
+    side-car <stem>_imgList.txt)."""
+    lines = [str(scene.n_intrinsics), str(scene.n_views), str(scene.n_landmarks)]
+    for i in range(scene.n_intrinsics):
+        dk = int(scene.disto_kind[i])
+        params = [scene.scale[i, 0], scene.scale[i, 1],
+                  scene.offset[i, 0], scene.offset[i, 1],
+                  *scene.disto[i, : _N_DISTO_PARAMS[dk]]]
+        lines.append(" ".join(repr(float(x)) for x in params) + " ")
+    for v in range(scene.n_views):
+        p = scene.view_pose[v]
+        if p == INVALID:
+            R, c = np.eye(3), np.zeros(3)
+        else:
+            R, c = scene.pose_R[p], scene.pose_c[p]
+        vals = list(R.ravel(order="F")) + list(c)
+        lines.append(" ".join(repr(float(x)) for x in vals) + " ")
+    order = np.argsort(scene.obs_landmark, kind="stable")
+    bounds = np.searchsorted(scene.obs_landmark[order],
+                             np.arange(scene.n_landmarks + 1))
+    for l in range(scene.n_landmarks):
+        parts = [repr(float(x)) for x in scene.points[l]]
+        obs_idx = order[bounds[l] : bounds[l + 1]]
+        parts.append(str(len(obs_idx)))
+        for o in obs_idx:
+            vi = int(scene.obs_view[o])
+            iid = int(scene.intrinsic_ids[scene.view_intrinsic[vi]]) \
+                if scene.view_intrinsic[vi] != INVALID else 0
+            pid = int(scene.pose_ids[scene.view_pose[vi]]) \
+                if scene.view_pose[vi] != INVALID else int(scene.view_ids[vi])
+            parts += [str(iid), str(pid),
+                      repr(float(scene.obs_uv[o, 0])), repr(float(scene.obs_uv[o, 1]))]
+        lines.append(" ".join(parts) + " ")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    stem = os.path.splitext(path)[0]
+    with open(stem + "_imgList.txt", "w") as f:
+        for v in range(scene.n_views):
+            iid = int(scene.intrinsic_ids[scene.view_intrinsic[v]]) \
+                if scene.view_intrinsic[v] != INVALID else 0
+            pid = int(scene.pose_ids[scene.view_pose[v]]) \
+                if scene.view_pose[v] != INVALID else int(scene.view_ids[v])
+            f.write(f"{scene.view_paths[v]} {iid} {pid}\n")
+
+
 _LATER = {
     ".abc": "Alembic scenes (sfmdata/alembic.py) are ported in a later slice "
-    "(ROADMAP queue 13, auxiliary IO)",
-    ".ply": "PLY structure export is ported with sfmdata/export.py in a later "
-    "slice (ROADMAP queue 13, auxiliary IO)",
-    ".baf": "BAF export is ported with sfmdata/export.py in a later slice "
     "(ROADMAP queue 13, auxiliary IO)",
 }
 
@@ -388,6 +455,10 @@ def save(scene: SfMData, path: str) -> None:
     ext = os.path.splitext(path)[1].lower()
     if ext in (".sfm", ".json"):
         save_sfm(scene, path)
+    elif ext == ".ply":
+        save_ply(scene, path)
+    elif ext == ".baf":
+        save_baf(scene, path)
     elif ext in _LATER:
         raise NotImplementedError(_LATER[ext])
     else:

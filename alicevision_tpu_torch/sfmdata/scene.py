@@ -120,6 +120,10 @@ class SfMData:
     def n_landmarks(self) -> int:
         return len(self.landmark_ids)
 
+    @property
+    def n_observations(self) -> int:
+        return len(self.obs_landmark)
+
     # --- accessors -------------------------------------------------------
     def valid_views(self) -> np.ndarray:
         """Indices of views with a pose and an intrinsic
@@ -127,6 +131,16 @@ class SfMData:
         return np.nonzero(
             (self.view_pose != INVALID) & (self.view_intrinsic != INVALID)
         )[0]
+
+    def camera_matrices(self, view_idx: int):
+        """(K, R, c) for one posed view, float64 numpy (ref:
+        mvsUtils/MultiViewParams.hpp:86 per-camera P/K/R/C tables)."""
+        ii = int(self.view_intrinsic[view_idx])
+        p = int(self.view_pose[view_idx])
+        fx, fy = self.scale[ii]
+        pp = self.offset[ii] + 0.5 * self.sizes[ii]
+        K = np.array([[fx, 0.0, pp[0]], [0.0, fy, pp[1]], [0.0, 0.0, 1.0]])
+        return K, self.pose_R[p], self.pose_c[p]
 
     def intrinsics_table(self, dtype=torch.float32, device="cpu") -> cam.Intrinsics:
         """Batched torch Intrinsics for the compute path."""

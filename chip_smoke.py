@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's dense depth-map path with all its branches,
 its SfM front end, its whole main path (images to point cloud), its
-surface mesher, the hard scene (images to poses) and its bundle adjuster
-once on one GPU.
+surface mesher, Meshroom's chain through its CLI (images to textured mesh,
+one process a stage), the hard scene (images to poses) and its bundle
+adjuster once on one GPU.
 
     python3 chip_smoke.py
 
@@ -59,6 +60,26 @@ toolkit (`nvcc`). It
    the landmarks, each posed view's depth map, the cloud and the SGM
    launches (four a map); then incrementalSfm once more with its host syncs
    counted;
+7b. the `cli` phase (after step 7): Meshroom's chain on the same images as
+   14 processes of `python -m alicevision_tpu_torch.pipeline.cli`, one a
+   stage, at the CLI's defaults, each timed from launch to exit with the
+   stage's own seconds, its host peak (resident memory sampled from /proc
+   every 10 ms) and its device peak: cameraInit -> featureExtraction ->
+   imageMatching -> featureMatching -> incrementalSfm -> prepareDenseScene
+   -> depthMapEstimation (D = 96) -> depthMapFiltering -> meshSurface ->
+   meshFiltering (--clean --fillHolesMaxEdges 8) -> texturing (2048^2,
+   multi-band, with --depth), then tracksBuilding -> sfmBootstraping ->
+   sfmExpanding on the same features and matches; depthMapEstimation once
+   more in this process through `cli.main` (4 SGM launches a map, the maps
+   equal to the subprocess's); checked are the poses (the pipeline phase's
+   gates, rotations held to the reference's spread on this chain's
+   features), the D = 96 maps (its depth floors), the surface mesh (the
+   mesh_surface size and index gates; mapped into the rendered frame by
+   the centres' similarity, its box-world numbers held to the JAX chain's
+   on the same features with a margin; within 2 % of the maps it was fused
+   from in every view), the filtered mesh (valid, no degenerate face), the
+   textured OBJ (vt and usemtl lines, an atlas filled over 5 %, read back
+   by the port's own PNG reader) and sfmExpanding's poses;
 8. runs the bundle adjuster (`sfm/ba.py`) at the two problem sizes of
    bench.py — 100 cameras / 10k landmarks through the dense Schur solve and
    1024 cameras / 300k landmarks through matrix-free PCG — timing LM
@@ -79,12 +100,13 @@ toolkit (`nvcc`). It
    ATE < 1.2 % of the radius), with stage seconds, peak memory and the
    engine's seconds by step;
 11. prints a `mesh_surface`, a `hard_scene`, a `dense_full`, a `front`, a
-   `pipeline`, a `ba` and a `kernels` JSON line and, last,
+   `pipeline`, a `ba`, a `cli` and a `kernels` JSON line and, last,
    `{"ok": true, "device": ...}`.
 
 Every failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA device; `make_posed_scene`, `run_main_path`, `run_front`,
 `front_report`, `run_pipeline`, `pipeline_report`, `run_mesh_surface`,
+`cli_chain`, `check_cli`,
 `run_hard_scene_engine`, `run_hard_images`, the bench scenes and the BA
 problem builders also run on the CPU at small sizes (the port's tests call
 some of them so).
@@ -99,6 +121,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -1013,13 +1036,27 @@ def _align_similarity(a: np.ndarray, b: np.ndarray):
     return s, R, mu_b - s * R @ mu_a
 
 
+def _angle_deg(A: np.ndarray) -> float:
+    return float(np.degrees(np.arccos(np.clip((np.trace(A) - 1) / 2, -1, 1))))
+
+
+def rotation_errors_deg(est_R: np.ndarray, R_true: np.ndarray) -> tuple:
+    """Each estimated rotation's angle to the truth after the rotation Ro
+    that best aligns the orientations (their chordal mean; centres on a
+    short arc pin a tilt about its chord only weakly). Returns (angles in
+    degrees, Ro)."""
+    U, _, Vt = np.linalg.svd(np.einsum("vji,vjk->ik", R_true, est_R))
+    Ro = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+    return [_angle_deg(Re @ Ro.T @ Rt.T) for Re, Rt in zip(est_R, R_true)], Ro
+
+
 def pipeline_report(work: str, R_true: np.ndarray, c_true: np.ndarray, gt: np.ndarray, downscale: int = 2) -> dict:
     """The reconstruction in `work` against the rendered truth (view v is
     image v + 1): posed views, camera-centre ATE after a similarity
     alignment of the centres, rotation errors after the rotation that best
     aligns the orientations, each posed view's depth map
     scaled by the alignment's s against the rendered depth, landmarks,
-    the refined focal and the cloud's points."""
+    the refined focal and the cloud's points (None without a cloud.ply)."""
     sc = sfmdata.load(os.path.join(work, "sfm.sfm"))
     posed = sc.valid_views()
     rows = sc.view_pose[posed]
@@ -1028,15 +1065,7 @@ def pipeline_report(work: str, R_true: np.ndarray, c_true: np.ndarray, gt: np.nd
     aligned = est_c @ (s * Ra).T + t
     ate = float(np.sqrt(np.mean(np.sum((aligned - c_true[posed]) ** 2, axis=1))))
     radius = float(np.linalg.norm(c_true[:, :2], axis=1).mean())
-    # the rotation of the alignment from the orientations (their chordal
-    # mean): centres on a short arc pin a tilt about its chord only weakly
-    U, _, Vt = np.linalg.svd(np.einsum("vji,vjk->ik", R_true[posed], est_R))
-    Ro = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
-
-    def angle(A):
-        return float(np.degrees(np.arccos(np.clip((np.trace(A) - 1) / 2, -1, 1))))
-
-    rot = [angle(Re @ Ro.T @ Rt.T) for Re, Rt in zip(est_R, R_true[posed])]
+    rot, Ro = rotation_errors_deg(est_R, R_true[posed])
     depth_med, depth_valid = [], []
     for v in posed:
         d = np.load(os.path.join(work, "depth", f"{int(sc.view_ids[v])}_depth.npy"))
@@ -1046,8 +1075,10 @@ def pipeline_report(work: str, R_true: np.ndarray, c_true: np.ndarray, gt: np.nd
         med, frac = depth_stats(d * s, gt_v)
         depth_med.append(med)
         depth_valid.append(frac)
-    with open(os.path.join(work, "cloud.ply")) as f:
-        header = [next(f) for _ in range(3)]
+    n_cloud = None
+    if os.path.exists(os.path.join(work, "cloud.ply")):
+        with open(os.path.join(work, "cloud.ply")) as f:
+            n_cloud = int([next(f) for _ in range(3)][2].split()[-1])
     return {
         "posed": [int(v) + 1 for v in posed],
         "n_posed": len(posed),
@@ -1055,12 +1086,12 @@ def pipeline_report(work: str, R_true: np.ndarray, c_true: np.ndarray, gt: np.nd
         "ate": ate,
         "ate_frac_of_radius": ate / radius,
         "rotation_err_deg": rot,
-        "centre_vs_orientation_alignment_deg": angle(Ra @ Ro.T),
+        "centre_vs_orientation_alignment_deg": _angle_deg(Ra @ Ro.T),
         "scale": float(s),
         "focal_px": sc.scale.tolist(),
         "depth_median_rel_err": depth_med,
         "depth_valid_frac": depth_valid,
-        "cloud_points": int(header[2].split()[-1]),
+        "cloud_points": n_cloud,
     }
 
 
@@ -1651,6 +1682,305 @@ def check_hard_scene(dev, work: str, card: str) -> dict:
     return row
 
 
+# ------------------------------------------------------------------ cli
+
+# The cli phase: Meshroom's chain as one `python -m
+# alicevision_tpu_torch.pipeline.cli` process a stage, at the CLI's own
+# defaults (DSP-SIFT, D = 96 at 640x480, a 2048^2 multi-band atlas). Its
+# gates are the pipeline phase's (poses, D = 96 depth floors), the
+# mesh_surface phase's size and index checks, the surface mesh's agreement
+# with the maps it was fused from, and tests/test_pipeline_e2e.py's atlas
+# fill. Two gates of the earlier phases do not hold for the reference
+# itself on this chain: DSP-SIFT's keypoints move the short arc's
+# intrinsics, and on the card's own features (saved by
+# scripts/cli_chain_diagnostics_torch.py) the JAX engine misses the pipeline
+# phase's 1 deg of rotation error and its dense and mesh stages miss the
+# mesh_surface phase's box-world gates (scripts/cli_chain_reference.py, on
+# the CPU; PERF.md §6). Those two gates are replaced by the reference's
+# numbers with a margin: the rotation gate lies above every reading of
+# either engine on those features (the port's on the CPU the largest), the
+# box-world gates below the JAX chain's share of vertices in the box and
+# above its median distance to the boxes.
+CLI_ATLAS = 2048
+CLI_MIN_ATLAS_FILL = 0.05
+CLI_ROT_DEG = 2.0
+CLI_BOX_IN_FRAC, CLI_BOX_MEDIAN = 0.55, 0.30
+CLI_MESH_MAPS_MED = 0.02  # the mesh against its input maps, median relative difference a view
+CLI_FOCAL_PX = 1120.0  # cameraInit's --defaultFocalPx, as the pipeline phase
+CLI_DOWNSCALE = 2  # the dense stages' --downscale default
+
+
+def cli_chain(work: str, image_folder: str, extra=()) -> list:
+    """The 14 stage commands of the cli phase, as (name, argv) over `work`:
+    cameraInit -> featureExtraction -> imageMatching -> featureMatching ->
+    incrementalSfm -> prepareDenseScene -> depthMapEstimation ->
+    depthMapFiltering -> meshSurface -> meshFiltering -> texturing, then
+    tracksBuilding -> sfmBootstraping -> sfmExpanding on the same features
+    and matches. `extra` is appended to every command (e.g. --device)."""
+    def w(*p):
+        return os.path.join(work, *p)
+
+    init, sfm = w("cameraInit.sfm"), w("sfm.sfm")
+    steps = [
+        ("cameraInit", ["--imageFolder", image_folder, "--output", init, "--defaultFocalPx", str(CLI_FOCAL_PX)]),
+        ("featureExtraction", ["--input", init, "--output", w("features")]),
+        ("imageMatching", ["--input", init, "--features", w("features"), "--output", w("pairs.txt")]),
+        ("featureMatching", ["--input", init, "--features", w("features"), "--pairs", w("pairs.txt"),
+                             "--output", w("matches.npz")]),
+        ("incrementalSfm", ["--input", init, "--features", w("features"), "--matches", w("matches.npz"),
+                            "--output", sfm]),
+        ("prepareDenseScene", ["--input", sfm, "--output", w("dense")]),
+        ("depthMapEstimation", ["--input", sfm, "--images", w("dense"), "--output", w("depth")]),
+        ("depthMapFiltering", ["--input", sfm, "--depth", w("depth"), "--output", w("depth_filtered")]),
+        ("meshSurface", ["--input", sfm, "--depth", w("depth_filtered"), "--output", w("mesh.obj")]),
+        ("meshFiltering", ["--input", w("mesh.obj"), "--output", w("mesh_filtered.obj"), "--clean",
+                           "--fillHolesMaxEdges", "8"]),
+        ("texturing", ["--input", sfm, "--mesh", w("mesh_filtered.obj"), "--images", w("dense"), "--depth",
+                       w("depth"), "--output", w("textured.obj"), "--atlasSize", str(CLI_ATLAS)]),
+        ("tracksBuilding", ["--input", init, "--features", w("features"), "--matches", w("matches.npz"),
+                            "--output", w("tracks.npz")]),
+        ("sfmBootstraping", ["--input", init, "--features", w("features"), "--tracks", w("tracks.npz"),
+                             "--output", w("bootstrap.sfm")]),
+        ("sfmExpanding", ["--input", w("bootstrap.sfm"), "--features", w("features"), "--tracks",
+                          w("tracks.npz"), "--output", w("expanded.sfm")]),
+    ]
+    return [(name, [name, *argv, *extra]) for name, argv in steps]
+
+
+def _resident_bytes(pid: int):
+    """The resident memory of process `pid` (/proc/<pid>/statm), or None
+    once it has gone."""
+    try:
+        with open(f"/proc/{pid}/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def run_cli_process(argv: list, log_prefix: str) -> dict:
+    """One `python -m alicevision_tpu_torch.pipeline.cli` process from
+    launch to exit: its seconds, exit code, the stage's own seconds and
+    device peak memory (from its "done" line), its host peak (its resident
+    memory sampled every 10 ms while it runs: a peak shorter than that may
+    be missed), and its stdout. stdout and stderr go to `log_prefix`.out /
+    .err."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    peak = 0
+    with open(log_prefix + ".out", "w") as out, open(log_prefix + ".err", "w") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "alicevision_tpu_torch.pipeline.cli", *argv],
+                                cwd=ROOT, env=env, stdout=out, stderr=err)
+        while proc.poll() is None:
+            peak = max(peak, _resident_bytes(proc.pid) or 0)
+            time.sleep(0.01)
+        rc = proc.returncode
+        seconds = time.perf_counter() - t0
+    with open(log_prefix + ".err") as f:
+        err_text = f.read()
+    with open(log_prefix + ".out") as f:
+        out_text = f.read()
+
+    def last(pattern):
+        found = re.findall(pattern, err_text)
+        return float(found[-1]) if found else None
+
+    return {"seconds": seconds, "rc": rc, "stage_s": last(r"done in ([0-9.]+)s"),
+            "host_peak_gib": peak / 2**30 if peak else None,
+            "device_peak_gib": last(r"peak device memory ([0-9.]+) GiB"), "stdout": out_text, "stderr": err_text}
+
+
+def mesh_box_stats(verts: np.ndarray, faces: np.ndarray) -> dict:
+    """The mesh_surface phase's statistics of a mesh in the rendered frame."""
+    from alicevision_tpu_torch.utils.rendered import default_boxes
+
+    boxes = default_boxes()
+    lo, hi = boxes[:, 0].min(0) - MESH_BOX_MARGIN, boxes[:, 1].max(0) + MESH_BOX_MARGIN
+    dist = box_surface_distance(verts.astype(np.float64), boxes)
+    return {
+        "vertices": int(len(verts)), "faces": int(len(faces)),
+        "faces_valid": bool(len(faces) and faces.min() >= 0 and faces.max() < len(verts)),
+        "frac_in_box_world": float(((verts >= lo) & (verts <= hi)).all(1).mean()),
+        "median_dist_to_surface": float(np.median(dist)),
+        "p90_dist_to_surface": float(np.percentile(dist, 90)),
+    }
+
+
+def mesh_view_agreement(sfm_path: str, mesh_path: str, depth_folder: str, gt: np.ndarray, scale: float,
+                        device) -> dict:
+    """The mesh rendered into each posed view of the scene at the stage
+    scale (`mesh/render.py` on `device`): per view the median relative
+    difference to the view's depth map in `depth_folder` where both have a
+    depth (the mesh against the maps it was fused from), and the median
+    relative error of the rendered depth times `scale` against the rendered
+    truth (`depth_stats`)."""
+    from alicevision_tpu_torch.mesh import load_obj
+    from alicevision_tpu_torch.mesh.render import render_depth_map
+
+    sc = sfmdata.load(sfm_path)
+    V, F = load_obj(mesh_path)
+    vs_maps, vs_truth = [], []
+    for v in sc.valid_views():
+        K, R, c = sc.camera_matrices(v)
+        K = K.copy()
+        K[:2] /= CLI_DOWNSCALE
+        gt_v = gt[v, ::CLI_DOWNSCALE, ::CLI_DOWNSCALE]
+        d, _ = render_depth_map(V, F, K, R, c, gt_v.shape, device=device)
+        m = np.load(os.path.join(depth_folder, f"{int(sc.view_ids[v])}_depth.npy"))
+        both = (d > 0) & (m > 0)
+        vs_maps.append(float(np.median(np.abs(d - m)[both] / m[both])) if both.any() else float("inf"))
+        vs_truth.append(depth_stats(d * scale, gt_v)[0])
+    return {"median_rel_diff_to_maps": vs_maps, "median_rel_err_to_truth": vs_truth}
+
+
+def _degenerate_faces(v: np.ndarray, f: np.ndarray) -> int:
+    area2 = np.linalg.norm(np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]]), axis=1)
+    repeated = (f[:, 0] == f[:, 1]) | (f[:, 1] == f[:, 2]) | (f[:, 0] == f[:, 2])
+    return int((repeated | (area2 <= 0)).sum())
+
+
+def _posed_ate(sfm_path: str, R_true: np.ndarray, c_true: np.ndarray) -> dict:
+    """Posed views and camera-centre ATE (fraction of the ring radius) of a
+    scene against the rendered poses (view v is image v + 1)."""
+    sc = sfmdata.load(sfm_path)
+    posed = sc.valid_views()
+    est = sc.pose_c[sc.view_pose[posed]]
+    s, Ra, t = _align_similarity(est, c_true[posed])
+    ate = float(np.sqrt(np.mean(np.sum((est @ (s * Ra).T + t - c_true[posed]) ** 2, axis=1))))
+    radius = float(np.linalg.norm(c_true[:, :2], axis=1).mean())
+    return {"n_posed": int(len(posed)), "landmarks": int(sc.n_landmarks), "ate_frac_of_radius": ate / radius,
+            "alignment": (s, Ra, t)}
+
+
+def check_cli(dev, work: str, image_folder: str, posed_sfm: str, gt: np.ndarray, smi: str = "") -> tuple:
+    """The cli phase: the 14 stage processes of `cli_chain` on the rendered
+    images, each timed from launch to exit; depthMapEstimation once more
+    in this process through `cli.main`, with its SGM launches counted and
+    its maps held equal to the subprocess's; then the gates. Returns (the
+    `cli` row, the in-process run's launches)."""
+    from alicevision_tpu_torch.image.io import read_image
+    from alicevision_tpu_torch.mesh import load_obj
+    from alicevision_tpu_torch.pipeline import cli
+
+    out = os.path.join(work, "cli")
+    logs = os.path.join(work, "cli_logs")
+    os.makedirs(out, exist_ok=True)
+    os.makedirs(logs, exist_ok=True)
+    extra = ["--device", str(dev)]
+    seconds, rows = {}, {}
+    for name, argv in cli_chain(out, image_folder, extra=extra):
+        res = run_cli_process(argv, os.path.join(logs, name))
+        if res["rc"] != 0:
+            raise RuntimeError(f"cli: `{' '.join(argv)}` exited {res['rc']}: {res['stderr'][-2000:]}")
+        seconds[name] = res["seconds"]
+        rows[name] = {k: res[k] for k in ("seconds", "stage_s", "host_peak_gib", "device_peak_gib")}
+        print(f"cli {name}: {res['seconds']:.2f} s ({res['stage_s']} s in the stage), host peak "
+              f"{res['host_peak_gib']} GiB, device peak {res['device_peak_gib']} GiB", flush=True)
+        if name == "texturing":
+            texturing_steps = json.loads(res["stdout"].strip().splitlines()[-1])["texturing_seconds"]
+
+    # depthMapEstimation again in this process, with the kernel's launches
+    sfm = os.path.join(out, "sfm.sfm")
+    again = os.path.join(out, "depth_inprocess")
+    sgm_kernel.launches.update(dict.fromkeys(sgm_kernel.launches, 0))
+    t0 = time.perf_counter()
+    rc = cli.main(["depthMapEstimation", "--input", sfm, "--images", os.path.join(out, "dense"),
+                   "--output", again, "--profile", os.path.join(logs, "profile"), *extra])
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    inproc_s = time.perf_counter() - t0
+    launches = dict(sgm_kernel.launches)
+    traces = sorted(os.listdir(os.path.join(logs, "profile")))
+    with open(os.path.join(logs, "profile", traces[-1])) as f:
+        events = json.load(f)["traceEvents"]
+    trace = {"events": len(events), "device_kernels": sum(e.get("cat") == "kernel" for e in events),
+             "sgm_kernels": sum(e.get("cat") == "kernel" and "sgm" in e.get("name", "") for e in events)}
+    names = sorted(f for f in os.listdir(os.path.join(out, "depth")) if f.endswith("_depth.npy"))
+    diff = max(float(np.abs(np.load(os.path.join(out, "depth", f)) - np.load(os.path.join(again, f))).max())
+               for f in names)
+    equal = all(np.array_equal(np.load(os.path.join(out, "depth", f)), np.load(os.path.join(again, f)))
+                for f in names)
+
+    truth = sfmdata.load(posed_sfm)
+    R_true, c_true = truth.pose_R[truth.view_pose], truth.pose_c[truth.view_pose]
+    rep = pipeline_report(out, R_true, c_true, gt)
+    s, Ra, t = _posed_ate(sfm, R_true, c_true)["alignment"]
+    mv, mf = load_obj(os.path.join(out, "mesh.obj"))
+    surface = mesh_box_stats(mv @ (s * Ra).T + t, mf)
+    surface.update(mesh_view_agreement(sfm, os.path.join(out, "mesh.obj"), os.path.join(out, "depth_filtered"),
+                                       gt, s, dev))
+    fv, ff = load_obj(os.path.join(out, "mesh_filtered.obj"))
+    filtered = {"vertices": int(len(fv)), "faces": int(len(ff)),
+                "faces_valid": bool(len(ff) and ff.min() >= 0 and ff.max() < len(fv)),
+                "degenerate_faces": _degenerate_faces(fv, ff)}
+    with open(os.path.join(out, "textured.obj")) as f:
+        obj = f.read()
+    atlas = read_image(os.path.join(out, "textured_atlas.png"), grayscale=True)
+    expanded = _posed_ate(os.path.join(out, "expanded.sfm"), R_true, c_true)
+    boot = sfmdata.load(os.path.join(out, "bootstrap.sfm"))
+    row = {
+        "device": smi,
+        "stage_process_seconds": seconds,
+        "stages": rows,
+        "total_process_seconds": sum(seconds.values()),
+        "total_stage_seconds": sum(r["stage_s"] for r in rows.values()),
+        "texturing_step_seconds": texturing_steps,
+        "inprocess_depthMapEstimation_s": inproc_s,
+        "inprocess_rc": rc,
+        "inprocess_sgm_launches": launches,
+        "inprocess_maps": len(names),
+        "inprocess_max_abs_diff": diff,
+        "inprocess_maps_equal": equal,
+        "inprocess_profile_trace": trace,
+        "incremental": {k: rep[k] for k in ("n_posed", "landmarks", "ate_frac_of_radius", "rotation_err_deg",
+                                            "depth_median_rel_err", "depth_valid_frac", "focal_px")},
+        "surface_mesh": surface,
+        "filtered_mesh": filtered,
+        "textured": {"vt_lines": obj.count("\nvt "), "usemtl": "usemtl" in obj,
+                     "atlas_shape": list(atlas.shape), "atlas_fill": float((atlas > 0).mean())},
+        "bootstrap": {"n_posed": int(len(boot.valid_views())), "landmarks": int(boot.n_landmarks)},
+        "expanded": {k: v for k, v in expanded.items() if k != "alignment"},
+    }
+    print("cli " + json.dumps(row), flush=True)
+
+    bad = []
+    on_card = torch.device(dev).type == "cuda"
+    want = {"sgm_directional_pass": 0, "sgm_axis_sweeps": LAUNCHES_PER_MAP * len(names) * on_card}
+    if rc != 0 or launches != want or len(names) != rep["n_posed"]:
+        bad.append(f"in-process depthMapEstimation: rc {rc}, {len(names)} maps, launches {launches}, "
+                   f"expected {want}")
+    if not equal:
+        bad.append(f"in-process maps differ from the subprocess's by up to {diff}")
+    if on_card and not trace["device_kernels"]:
+        bad.append(f"the --profile trace holds no kernel of the card: {trace}")
+    if rep["n_posed"] < PIPE_MIN_POSED or not rep["ate_frac_of_radius"] < PIPE_ATE_FRAC:
+        bad.append(f"incrementalSfm: {rep['n_posed']} posed, ATE {rep['ate_frac_of_radius']:.4f} of the radius")
+    if not max(rep["rotation_err_deg"]) < CLI_ROT_DEG:
+        bad.append(f"incrementalSfm: rotation errors {rep['rotation_err_deg']} deg, expected < {CLI_ROT_DEG}")
+    missed = [v for v, m, f in zip(rep["posed"], rep["depth_median_rel_err"], rep["depth_valid_frac"])
+              if not (m < PIPE_DEPTH_MED and f > PIPE_DEPTH_VALID)]
+    if missed:
+        bad.append(f"views {missed} miss the depth floors (<{PIPE_DEPTH_MED}, >{PIPE_DEPTH_VALID})")
+    if not (surface["faces"] > MESH_MIN_FACES and surface["vertices"] > MESH_MIN_VERTS and surface["faces_valid"]
+            and surface["frac_in_box_world"] >= CLI_BOX_IN_FRAC and surface["median_dist_to_surface"] < CLI_BOX_MEDIAN
+            and max(surface["median_rel_diff_to_maps"]) < CLI_MESH_MAPS_MED):
+        bad.append(f"surface mesh: {surface}, expected more than {MESH_MIN_FACES} faces and {MESH_MIN_VERTS} "
+                   f"vertices, valid indices, >= {CLI_BOX_IN_FRAC} of its vertices in the box world, a median "
+                   f"distance to the boxes < {CLI_BOX_MEDIAN} and within {CLI_MESH_MAPS_MED} of its maps in "
+                   f"every view")
+    if not (filtered["faces"] > 0 and filtered["faces_valid"] and filtered["degenerate_faces"] == 0):
+        bad.append(f"filtered mesh: {filtered}")
+    tex = row["textured"]
+    if not (tex["vt_lines"] > 0 and tex["usemtl"] and tex["atlas_shape"] == [CLI_ATLAS, CLI_ATLAS]
+            and tex["atlas_fill"] > CLI_MIN_ATLAS_FILL):
+        bad.append(f"texturing: {tex}, expected vt and usemtl lines and a {CLI_ATLAS}^2 atlas filled over "
+                   f"{CLI_MIN_ATLAS_FILL}")
+    if expanded["n_posed"] < PIPE_MIN_POSED or not expanded["ate_frac_of_radius"] < PIPE_ATE_FRAC:
+        bad.append(f"sfmExpanding: {expanded['n_posed']} posed, ATE {expanded['ate_frac_of_radius']:.4f}")
+    if bad:
+        raise RuntimeError("cli: " + "; ".join(bad))
+    return row, launches
+
+
 def kernels_line(rows: list, agg_rows: list, launches: dict) -> dict:
     """The `kernels` entry of the SGM kernel, named after the entry the main
     path launches. Its numbers are one 640x480 D = 96 map's two
@@ -1798,6 +2128,9 @@ def main() -> int:
         # 7. the whole main path, images to cloud.ply, on the same images
         pipe, pipe_launches = check_pipeline(dev, work, os.path.join(work, "images"), sfm, gt)
 
+        # 7b. Meshroom's chain through the CLI, one process a stage
+        cli_row, cli_launches = check_cli(dev, work, os.path.join(work, "images"), sfm, gt, smi)
+
         # 8. the hard scene: the engine on 40 distorted views, and the images
         # path at the reference's operating point
         hard = check_hard_scene(dev, work, smi)
@@ -1814,7 +2147,8 @@ def main() -> int:
     print(json.dumps({"front": front}), flush=True)
     print(json.dumps({"pipeline": pipe}), flush=True)
     print(json.dumps({"ba": ba_rows}), flush=True)
-    launches = {k: launches[k] + pipe_launches[k] + full_launches[k] for k in launches}
+    print(json.dumps({"cli": cli_row}), flush=True)
+    launches = {k: launches[k] + pipe_launches[k] + full_launches[k] + cli_launches[k] for k in launches}
     print(json.dumps({"kernels": [kernels_line(rows, agg_rows, launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
