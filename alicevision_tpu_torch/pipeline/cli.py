@@ -879,8 +879,253 @@ def _sfm_statistics(args):
     print(json.dumps(stats, indent=1))
 
 
-# The subcommands of cli.py that run; the others (panorama, HDR, lidar,
-# calibration, ...) exit 1 naming ROADMAP item 13.
+def rotation_pair_bearings(sc, features: str, matches_path: str, dev) -> dict:
+    """{(i, j): (bearings in view i, bearings in view j)} of each matched
+    pair of `matches_path`, on `dev`: what panoramaEstimation and nodalSfM
+    feed their engine."""
+    import torch
+
+    from .. import camera as camm
+    from . import stages as st
+
+    intr = sc.intrinsics_table(device=dev)
+
+    def bearings(xy, v):
+        row = intr.row(int(sc.view_intrinsic[v]))
+        return camm.backproject_ray(row, torch.as_tensor(xy, dtype=torch.float32, device=dev))
+
+    pair_bearings = {}
+    for (i, j), m in st.load_matches(matches_path).items():
+        fi = st.load_features(features, int(sc.view_ids[i]))
+        fj = st.load_features(features, int(sc.view_ids[j]))
+        pair_bearings[(i, j)] = (bearings(fi["xy"][m[:, 0]], i), bearings(fj["xy"][m[:, 1]], j))
+    return pair_bearings
+
+
+def _rotation_sfm(args):
+    """panoramaEstimation and nodalSfM (one engine in the reference too):
+    the bearings of each matched pair, `RotationSfM` with a generator seeded
+    0, rotation-only poses at the origin."""
+    import numpy as np
+    import torch
+
+    from .. import sfmdata
+    from ..sfm.rotation_sfm import RotationSfM
+
+    sc = sfmdata.load(args.input)
+    pair_bearings = rotation_pair_bearings(sc, args.features, args.matches, args.dev)
+    eng = RotationSfM(sc.n_views, float(np.mean(sc.scale)), (float(sc.sizes[0, 0]), float(sc.sizes[0, 1])),
+                      device=args.dev)
+    R, _ = eng.run(torch.Generator(device=args.dev).manual_seed(0), pair_bearings)
+    for v in range(sc.n_views):
+        sc.set_pose(v, R[v], np.zeros(3))
+    sfmdata.save(sc, args.output)
+
+
+def _panorama_warping(args):
+    import numpy as np
+    import torch
+
+    from .. import sfmdata
+    from ..image.io import read_image
+    from ..panorama import warp_to_equirect
+
+    sc = sfmdata.load(args.input)
+    os.makedirs(args.output, exist_ok=True)
+    Wp = args.panoWidth
+    Hp = Wp // 2
+    f32 = dict(dtype=torch.float32, device=args.dev)
+    for v in sc.valid_views():
+        if not sc.view_paths[v] or not os.path.exists(sc.view_paths[v]):
+            continue
+        img = read_image(sc.view_paths[v], grayscale=True)
+        ii = int(sc.view_intrinsic[v])
+        fx, fy = sc.scale[ii]
+        pp = sc.offset[ii] + 0.5 * sc.sizes[ii]
+        K = torch.tensor([[fx, 0, pp[0]], [0, fy, pp[1]], [0, 0, 1.0]], **f32)
+        p = int(sc.view_pose[v])
+        warped, mask = warp_to_equirect(torch.as_tensor(img, **f32), K, torch.as_tensor(sc.pose_R[p], **f32),
+                                        (Wp, Hp))
+        vid = int(sc.view_ids[v])
+        np.save(os.path.join(args.output, f"{vid}_warp.npy"), warped.cpu().numpy())
+        np.save(os.path.join(args.output, f"{vid}_mask.npy"), mask.cpu().numpy())
+
+
+def load_warped(folder: str, device):
+    """The `<viewId>_warp.npy` / `_mask.npy` pairs of a panoramaWarping
+    folder, in file order, as (V, H, W) float32 and bool tensors."""
+    import numpy as np
+    import torch
+
+    warps, masks = [], []
+    for f in sorted(os.listdir(folder)):
+        if f.endswith("_warp.npy"):
+            warps.append(np.load(os.path.join(folder, f)))
+            masks.append(np.load(os.path.join(folder, f.replace("_warp", "_mask"))))
+    return torch.as_tensor(np.stack(warps), device=device), torch.as_tensor(np.stack(masks), device=device)
+
+
+def _panorama_compositing(args):
+    from ..image.io import write_image
+    from ..panorama import composite_panorama
+
+    write_image(args.output, composite_panorama(*load_warped(args.input, args.dev)).cpu().numpy())
+
+
+def _split_360_images(args):
+    import numpy as np
+    import torch
+
+    from ..image.io import read_image, write_image
+    from ..image.processing import split_equirect
+
+    pano = read_image(args.input, grayscale=False)
+    imgs, K, Rs = split_equirect(torch.as_tensor(pano, device=args.dev), n_splits=args.nbSplits, fov_deg=args.fov,
+                                 out_size=args.outSize)
+    imgs = imgs.cpu().numpy()
+    os.makedirs(args.output, exist_ok=True)
+    for i in range(args.nbSplits):
+        write_image(os.path.join(args.output, f"split_{i:02d}.png"), imgs[i])
+    np.savez(os.path.join(args.output, "cameras.npz"), K=K.cpu().numpy(), R=Rs)
+
+
+def _image_processing(args):
+    import torch
+
+    from ..image import colorspace as cs
+    from ..image import processing as ip
+    from ..image.io import read_image, write_image
+
+    img = torch.as_tensor(read_image(args.input), device=args.dev)
+
+    def convert(img, src, dst):
+        rgb = cs.convert(img[..., :3], src, dst)
+        return torch.cat([rgb, img[..., 3:]], -1) if img.shape[-1] > 3 else rgb
+
+    if args.inputColorSpace != "auto" and img.ndim == 3 and img.shape[-1] >= 3:
+        img = convert(img, args.inputColorSpace, "linear")
+    if args.dcp:
+        from ..utils.dcp import DCPProfile
+
+        img = DCPProfile.from_xml(args.dcp).apply(img, cct=args.cct)
+    if args.lcp:
+        from ..utils.lcp import parse_lcp
+
+        alt = parse_lcp(args.lcp).interpolate(args.focalMm)
+        corrections = set(args.lensCorrection.split(","))
+        if "vignetting" in corrections:
+            img = ip.apply_lcp_vignette(img, alt)
+        if "geometry" in corrections:
+            img = ip.apply_lcp_geometry(img, alt)
+    if args.scale != 1.0:
+        img = ip.resize(img, args.scale)
+    if args.denoise:
+        img = ip.bilateral_denoise(img)
+    if args.sharpen > 0:
+        img = ip.sharpen(img, args.sharpen)
+    if args.contrast != 1.0:
+        img = ip.adjust_contrast(img, args.contrast)
+    if args.outputColorSpace != "auto" and img.ndim == 3 and img.shape[-1] >= 3:
+        # the working space after --inputColorSpace is linear
+        img = convert(img, "linear", args.outputColorSpace)
+    write_image(args.output, img.cpu().numpy())
+
+
+def _ldr_brackets(folder: str, n_brackets: int):
+    """The bracket images of a folder (sorted by name), their exposures and
+    their groups. EXIF exposures where every file has one, else the
+    reference's ladder 4**i over the folder's sorted files (ROADMAP §3)."""
+    import numpy as np
+
+    from .. import hdr as hdrm
+    from ..image.io import read_exif, read_image
+
+    files = sorted(f for f in os.listdir(folder) if f.lower().endswith((".jpg", ".png", ".jpeg", ".tif", ".npy")))
+    imgs = np.stack([read_image(os.path.join(folder, f)) for f in files])
+    exps = [read_exif(os.path.join(folder, f)).get("exposure_s", 0.0) for f in files]
+    if not all(e > 0 for e in exps):
+        exps = [4.0**i for i in range(len(files))]
+    return imgs, exps, hdrm.estimate_brackets(np.array(exps), n_brackets)
+
+
+def _ldr_to_hdr_sampling(args):
+    import numpy as np
+
+    from .. import hdr as hdrm
+
+    imgs, exps, groups = _ldr_brackets(args.inputFolder, args.nbBrackets)
+    lum = imgs.mean(-1) if imgs.ndim == 4 else imgs
+    samples, sample_exps = [], []
+    for g in groups:
+        idx = hdrm.sample_bracket_pixels(lum[g], args.samples)
+        samples.append(lum[g].reshape(len(g), -1)[:, idx])
+        sample_exps.append(np.array(exps)[g])
+    os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
+    np.savez_compressed(
+        args.output,
+        samples=np.concatenate(samples),
+        exposures=np.concatenate(sample_exps),
+        group_sizes=np.array([len(g) for g in groups]),
+    )
+
+
+def _ldr_to_hdr_calibration(args):
+    import numpy as np
+    import torch
+
+    from .. import hdr as hdrm
+
+    with np.load(args.input) as z:
+        samples, exps, sizes = z["samples"], z["exposures"], z["group_sizes"]
+    # Calibrate on the first bracket group (the reference does the same:
+    # one response shared across groups).
+    n0 = int(sizes[0])
+    s0 = torch.as_tensor(samples[:n0], dtype=torch.float32, device=args.dev)
+    e0 = torch.as_tensor(exps[:n0], dtype=torch.float32, device=args.dev)
+    out = {"method": args.calibrationMethod}
+    if args.calibrationMethod == "laguerre":
+        out["phi"] = hdrm.laguerre_calibrate(s0, e0).cpu().numpy()
+    elif args.calibrationMethod == "grossberg":
+        out["coeffs"] = hdrm.grossberg_calibrate(s0, e0).cpu().numpy()
+    else:
+        out["g"] = hdrm.debevec_calibrate(s0, e0).g.cpu().numpy()
+    os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
+    np.savez_compressed(args.output, **out)
+    print(json.dumps({"method": args.calibrationMethod}))
+
+
+def _ldr_to_hdr_merge(args):
+    import numpy as np
+    import torch
+
+    from .. import hdr as hdrm
+    from ..image.io import write_image
+
+    imgs, exps, groups = _ldr_brackets(args.inputFolder, args.nbBrackets)
+    os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
+    response = None
+    if args.response:
+        with np.load(args.response, allow_pickle=True) as z:
+            method = str(z["method"])
+            key = {"laguerre": "phi", "grossberg": "coeffs", "debevec": "g"}[method]
+            response = (method, np.asarray(z[key]))
+    for gi, g in enumerate(groups):
+        sub = torch.as_tensor(imgs[g], device=args.dev)
+        ex = torch.as_tensor(np.array(exps)[g], dtype=torch.float32, device=args.dev)
+        if response is not None:
+            merged = hdrm.merge_hdr(sub, ex, response=response)
+        else:
+            lum = imgs[g].mean(-1) if imgs.ndim == 4 else imgs[g]
+            idx = hdrm.sample_bracket_pixels(lum, 800)
+            flat = torch.as_tensor(lum.reshape(len(g), -1)[:, idx], device=args.dev)
+            merged = hdrm.merge_hdr(sub, ex, phi=hdrm.laguerre_calibrate(flat, ex))
+        out = args.output if len(groups) == 1 else args.output.replace(".", f"_{gi}.", 1)
+        write_image(out, merged.cpu().numpy())
+
+
+# The subcommands of cli.py that run; the others (imageSegmentation,
+# keyframeSelection, the lidar and calibration tools, ...) exit 1 naming
+# ROADMAP item 13.
 _HANDLERS = {
     "cameraInit": _camera_init,
     "featureExtraction": _feature_extraction,
@@ -915,6 +1160,15 @@ _HANDLERS = {
     "exportUSD": _export_usd,
     "convertMesh": _convert_mesh,
     "sfmStatistics": _sfm_statistics,
+    "panoramaEstimation": _rotation_sfm,
+    "panoramaWarping": _panorama_warping,
+    "panoramaCompositing": _panorama_compositing,
+    "split360Images": _split_360_images,
+    "imageProcessing": _image_processing,
+    "ldrToHdrSampling": _ldr_to_hdr_sampling,
+    "ldrToHdrCalibration": _ldr_to_hdr_calibration,
+    "ldrToHdrMerge": _ldr_to_hdr_merge,
+    "nodalSfM": _rotation_sfm,
 }
 
 

@@ -9,6 +9,7 @@ Handlers compute on `args.dev`, the device `cli.py` resolved.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 
@@ -141,7 +142,62 @@ def _setup_relpose(p):
     p.add_argument("--output", required=True, help="relative poses .npz")
 
 
-command("relativePoseEstimating", _setup_relpose)(_not_ported)
+@command("relativePoseEstimating", _setup_relpose)
+def _relative_pose_estimating(args):
+    """Per-pair essential decomposition
+    (ref: src/software/pipeline/main_relativePoseEstimating.cpp). The
+    RANSAC samples come from one generator seeded 0, a pair after another."""
+    import numpy as np
+    import torch
+
+    from .. import camera as camm
+    from .. import robust, sfmdata
+    from .stages import load_features, load_matches
+
+    sc = sfmdata.load(args.input)
+    matches = load_matches(args.matches)
+    intr = sc.intrinsics_table(device=args.dev)
+    gen = torch.Generator(device=args.dev).manual_seed(0)
+    edges, R_rel, dirs, n_inl = [], [], [], []
+    feats = {}
+
+    def get(v):
+        if v not in feats:
+            feats[v] = load_features(args.features, int(sc.view_ids[v]))
+        return feats[v]
+
+    def norm_pts(f, v, idx):
+        row = intr.row(int(sc.view_intrinsic[v]))
+        p = camm.ima2cam(row, torch.as_tensor(f["xy"][idx], dtype=torch.float32, device=args.dev))
+        return camm.remove_distortion(row.disto_kind, row.disto, p)
+
+    for (i, j), m in matches.items():
+        if len(m) < 8:
+            continue
+        x1 = norm_pts(get(i), i, m[:, 0])
+        x2 = norm_pts(get(j), j, m[:, 1])
+        f_mean = float(np.mean(sc.scale[int(sc.view_intrinsic[i])]))
+        w, h = float(sc.view_sizes[i, 0]), float(sc.view_sizes[i, 1])
+        R, t, rm = robust.robust_relative_pose(gen, x1, x2, f_mean, (w, h))
+        inl = int(rm.inliers.sum())
+        if inl < 12:
+            continue
+        R, t = R.cpu().numpy(), t.cpu().numpy()
+        edges.append((i, j))
+        R_rel.append(R)
+        # direction of c_j - c_i in camera-i frame: -R^T t normalized
+        d = -R.T @ t
+        dirs.append(d / max(np.linalg.norm(d), 1e-12))
+        n_inl.append(inl)
+    _ensure_parent(args.output)
+    np.savez_compressed(
+        args.output,
+        edges=np.asarray(edges, np.int64).reshape(-1, 2),
+        R_rel=np.asarray(R_rel).reshape(-1, 3, 3),
+        dirs=np.asarray(dirs).reshape(-1, 3),
+        inliers=np.asarray(n_inl, np.int64),
+    )
+    print(json.dumps({"pairs": len(edges)}))
 
 
 def _setup_globalsfm(p):
@@ -154,7 +210,54 @@ def _setup_globalsfm(p):
     p.add_argument("--minTrackLength", type=int, default=2)
 
 
-command("globalSfM", _setup_globalsfm)(_not_ported)
+@command("globalSfM", _setup_globalsfm)
+def _global_sfm(args):
+    """Rotation/translation averaging reconstruction
+    (ref: src/software/pipeline/main_globalSfM.cpp,
+    sfm/pipeline/global/ReconstructionEngine_globalSfM.hpp:36-53)."""
+    import numpy as np
+
+    from .. import sfmdata
+    from ..sfm.global_sfm import GlobalSfM
+    from ..sfm.incremental import IncrementalConfig, IncrementalSfM
+    from ..tracks.builder import build_tracks
+    from .stages import load_features, load_matches
+
+    sc = sfmdata.load(args.input)
+    rel = args.relativePoses
+    if not (rel and os.path.exists(rel)):
+        rel = args.output + ".relposes.npz"
+        _relative_pose_estimating(argparse.Namespace(input=args.input, features=args.features,
+                                                     matches=args.matches, output=rel, dev=args.dev))
+    with np.load(rel) as z:
+        edges, R_rel, dirs = z["edges"], z["R_rel"], z["dirs"]
+    if len(edges) < 1:
+        raise RuntimeError("no relative poses")
+    eng = GlobalSfM(sc.n_views, sc.intrinsics_table(), sc.view_intrinsic, sc.view_sizes, device=args.dev)
+    R, c = eng.run(edges, R_rel, dirs)
+    for v in range(sc.n_views):
+        sc.set_pose(v, np.asarray(R[v], np.float64), np.asarray(c[v], np.float64))
+
+    # triangulate tracks against the averaged poses, then one global BA
+    matches = load_matches(args.matches)
+    feats = {v: load_features(args.features, int(sc.view_ids[v])) for v in range(sc.n_views)}
+    tracks = build_tracks(matches, {v: len(feats[v]["xy"]) for v in feats}, min_track_length=args.minTrackLength)
+    engine = IncrementalSfM(
+        tracks, {v: feats[v]["xy"] for v in feats}, sc.intrinsics_table(),
+        view_intrinsic=sc.view_intrinsic, image_sizes=sc.view_sizes,
+        config=IncrementalConfig(), device=args.dev,
+    )
+    for v in range(sc.n_views):
+        engine.res.pose_R[v] = np.asarray(R[v])
+        engine.res.pose_c[v] = np.asarray(c[v])
+        engine.res.posed[v] = True
+    engine.triangulate_all()
+    engine.bundle_adjust()
+    engine.remove_outliers()
+    out = engine.to_sfmdata(view_ids=sc.view_ids)
+    out.view_paths = list(sc.view_paths)
+    sfmdata.save(out, args.output)
+    print(json.dumps({"poses": int(engine.res.posed.sum()), "landmarks": out.n_landmarks}))
 
 
 def _setup_triangulate(p):
@@ -656,7 +759,26 @@ def _setup_pano_prepare(p):
     p.add_argument("--downscaleTo", type=int, default=0)
 
 
-command("panoramaPrepareImages", _setup_pano_prepare)(_not_ported)
+@command("panoramaPrepareImages", _setup_pano_prepare)
+def _panorama_prepare_images(args):
+    """Normalize orientation/size of panorama inputs, on the host
+    (ref: src/software/pipeline/main_panoramaPrepareImages.cpp)."""
+    import numpy as np
+
+    from ..image.io import read_exif, read_image, write_image
+
+    files = sorted(f for f in os.listdir(args.inputFolder) if f.lower().endswith((".jpg", ".png", ".jpeg", ".npy")))
+    os.makedirs(args.output, exist_ok=True)
+    for fname in files:
+        img = read_image(os.path.join(args.inputFolder, fname))
+        rot = int(read_exif(os.path.join(args.inputFolder, fname)).get("orientation", 1))
+        if rot in (3, 6, 8):
+            img = np.rot90(img, {3: 2, 6: 3, 8: 1}[rot])
+        if args.downscaleTo and max(img.shape[:2]) > args.downscaleTo:
+            s = max(img.shape[:2]) // args.downscaleTo + 1
+            img = img[::s, ::s]
+        write_image(os.path.join(args.output, os.path.splitext(fname)[0] + ".png"), img)
+    print(json.dumps({"images": len(files)}))
 
 
 def _setup_pano_init(p):
@@ -668,7 +790,36 @@ def _setup_pano_init(p):
                    help="0 = single ring; else rows x cols rig pattern")
 
 
-command("panoramaInit", _setup_pano_init)(_not_ported)
+@command("panoramaInit", _setup_pano_init)
+def _panorama_init(args):
+    """Initial rotations for a panorama shoot: evenly spaced yaw (and pitch
+    rows for multi-row rigs) (ref: src/software/pipeline/main_panoramaInit.cpp)."""
+    import numpy as np
+
+    from .. import camera as camm
+    from .. import sfmdata
+    from .stages import camera_init
+
+    tmp = args.output + ".init.sfm"
+    camera_init(args.imageFolder, tmp, None, args.defaultFocalPx, device=args.dev)
+    sc = sfmdata.load(tmp)
+    os.remove(tmp)
+    if args.fisheye:
+        sc.cam_kind[:] = camm.CAM_EQUIDISTANT
+    n = sc.n_views
+    per_row = args.nbViewsPerRow or n
+    rows = max(1, (n + per_row - 1) // per_row)
+    for v in range(n):
+        row_i, col_i = divmod(v, per_row)
+        yaw = 2.0 * np.pi * col_i / per_row
+        pitch = 0.0 if rows == 1 else (row_i / max(rows - 1, 1) - 0.5) * np.pi / 2
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        cp, sp = np.cos(pitch), np.sin(pitch)
+        Ry = np.array([[cy, 0, -sy], [0, 1, 0], [sy, 0, cy]])
+        Rx = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+        sc.set_pose(v, Rx @ Ry, np.zeros(3))
+    sfmdata.save(sc, args.output)
+    print(json.dumps({"views": n, "rows": rows}))
 
 
 def _setup_pano_seams(p):
@@ -676,7 +827,25 @@ def _setup_pano_seams(p):
     p.add_argument("--output", required=True, help="labels .npy")
 
 
-command("panoramaSeams", _setup_pano_seams)(_not_ported)
+@command("panoramaSeams", _setup_pano_seams)
+def _panorama_seams(args):
+    """ref: src/software/pipeline/main_panoramaSeams.cpp, panorama/seams.cpp"""
+    import numpy as np
+    import torch
+
+    from ..panorama.compositing import seam_labels
+
+    masks, order = [], []
+    for f in sorted(os.listdir(args.input)):
+        if f.endswith("_mask.npy"):
+            masks.append(np.load(os.path.join(args.input, f)))
+            order.append(f.replace("_mask.npy", ""))
+    if not masks:
+        raise RuntimeError("no *_mask.npy in input folder")
+    labels = seam_labels(torch.as_tensor(np.stack(masks), device=args.dev))
+    _ensure_parent(args.output)
+    np.savez_compressed(args.output, labels=labels.cpu().numpy(), views=np.asarray(order))
+    print(json.dumps({"views": len(masks)}))
 
 
 def _setup_pano_merge(p):
@@ -686,7 +855,26 @@ def _setup_pano_merge(p):
     p.add_argument("--levels", type=int, default=5)
 
 
-command("panoramaMerging", _setup_pano_merge)(_not_ported)
+@command("panoramaMerging", _setup_pano_merge)
+def _panorama_merging(args):
+    """Blend warped views into the final panorama, optionally with
+    precomputed seams (ref: src/software/pipeline/main_panoramaMerging.cpp)."""
+    import numpy as np
+    import torch
+
+    from ..image.io import write_image
+    from ..panorama.compositing import composite_panorama, composite_with_labels
+    from .cli import load_warped
+
+    w, m = load_warped(args.input, args.dev)
+    if args.seams:
+        with np.load(args.seams) as z:
+            labels = torch.as_tensor(z["labels"], device=args.dev)
+        pano = composite_with_labels(w, labels, m, levels=args.levels)
+    else:
+        pano = composite_panorama(w, m, levels=args.levels)
+    _ensure_parent(args.output)
+    write_image(args.output, pano.cpu().numpy())
 
 
 def _setup_pano_post(p):
@@ -696,7 +884,25 @@ def _setup_pano_post(p):
     p.add_argument("--crop", action="store_true")
 
 
-command("panoramaPostProcessing", _setup_pano_post)(_not_ported)
+@command("panoramaPostProcessing", _setup_pano_post)
+def _panorama_post_processing(args):
+    """ref: src/software/pipeline/main_panoramaPostProcessing.cpp"""
+    import numpy as np
+    import torch
+
+    from ..image.io import read_image, write_image
+    from ..panorama.compositing import crop_to_content, fill_holes
+
+    img = read_image(args.input, grayscale=True)
+    mask = img > 0
+    out = img
+    if args.fillHoles:
+        out = fill_holes(torch.as_tensor(img, device=args.dev), torch.as_tensor(mask, device=args.dev))
+        out = out.cpu().numpy()
+        mask = np.ones_like(mask)
+    if args.crop:
+        out, mask, _ = crop_to_content(out, mask)
+    write_image(args.output, np.asarray(out))
 
 
 def _setup_cc_detect(p):

@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's dense depth-map path with all its branches,
 its SfM front end, its whole main path (images to point cloud), its
 surface mesher, Meshroom's chain through its CLI (images to textured mesh,
-one process a stage), the hard scene (images to poses) and its bundle
-adjuster once on one GPU.
+one process a stage), the HDR panorama chain and global SfM, the hard scene
+(images to poses) and its bundle adjuster once on one GPU.
 
     python3 chip_smoke.py
 
@@ -80,6 +80,24 @@ toolkit (`nvcc`). It
    from in every view), the filtered mesh (valid, no degenerate face), the
    textured OBJ (vt and usemtl lines, an atlas filled over 5 %, read back
    by the port's own PNG reader) and sfmExpanding's poses;
+7c. the `panorama` phase (after step 7b), in this process through
+   `cli.main`: a procedural HDR equirect radiance (2048x1024, fixed seed)
+   split on the card into 12 views of 1024^2 (fov 80 deg, 30 deg apart),
+   3 Laguerre brackets a view (exposures 1, 4, 16), then ldrToHdrSampling
+   and ldrToHdrCalibration by the three methods on view 0, ldrToHdrMerge of
+   each view (Laguerre), cameraInit -> featureExtraction -> imageMatching
+   -> featureMatching at the CLI's defaults, panoramaEstimation and
+   nodalSfM (equal scenes), panoramaEstimation again on the ring's
+   sequential pairs, panoramaWarping (2048) -> panoramaSeams ->
+   panoramaMerging --seams -> panoramaCompositing -> panoramaPostProcessing
+   --fillHoles --crop, panoramaPrepareImages, panoramaInit, split360Images
+   (held to split_equirect within 8-bit quantisation) and imageProcessing;
+   the warp and composite of the 12 merged views at 8192 with both blur
+   forms timed; relativePoseEstimating -> globalSfM on the cli phase's 8
+   views. Gated: Laguerre phi, the merged radiance's correlation with the
+   truth, the rotation errors, the panoramas' median errors, globalSfM's
+   rotations and ATE (the JAX chain's readings with a margin,
+   scripts/panorama_chain_reference.py), and no SGM launch;
 8. runs the bundle adjuster (`sfm/ba.py`) at the two problem sizes of
    bench.py — 100 cameras / 10k landmarks through the dense Schur solve and
    1024 cameras / 300k landmarks through matrix-free PCG — timing LM
@@ -100,14 +118,14 @@ toolkit (`nvcc`). It
    ATE < 1.2 % of the radius), with stage seconds, peak memory and the
    engine's seconds by step;
 11. prints a `mesh_surface`, a `hard_scene`, a `dense_full`, a `front`, a
-   `pipeline`, a `ba`, a `cli` and a `kernels` JSON line and, last,
-   `{"ok": true, "device": ...}`.
+   `pipeline`, a `ba`, a `cli`, a `panorama` and a `kernels` JSON line and,
+   last, `{"ok": true, "device": ...}`.
 
 Every failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA device; `make_posed_scene`, `run_main_path`, `run_front`,
 `front_report`, `run_pipeline`, `pipeline_report`, `run_mesh_surface`,
-`cli_chain`, `check_cli`,
-`run_hard_scene_engine`, `run_hard_images`, the bench scenes and the BA
+`cli_chain`, `check_cli`, `make_panorama_inputs`, `run_panorama_chain`,
+`panorama_report`, `run_hard_scene_engine`, `run_hard_images`, the bench scenes and the BA
 problem builders also run on the CPU at small sizes (the port's tests call
 some of them so).
 """
@@ -1037,7 +1055,10 @@ def _align_similarity(a: np.ndarray, b: np.ndarray):
 
 
 def _angle_deg(A: np.ndarray) -> float:
-    return float(np.degrees(np.arccos(np.clip((np.trace(A) - 1) / 2, -1, 1))))
+    """The angle of rotation A in degrees, from its skew and its trace part
+    (the trace alone loses angles under ~0.05 deg to float32 rounding)."""
+    skew = np.array([A[2, 1] - A[1, 2], A[0, 2] - A[2, 0], A[1, 0] - A[0, 1]])
+    return float(np.degrees(np.arctan2(0.5 * np.linalg.norm(skew), 0.5 * (np.trace(A) - 1))))
 
 
 def rotation_errors_deg(est_R: np.ndarray, R_true: np.ndarray) -> tuple:
@@ -1981,6 +2002,441 @@ def check_cli(dev, work: str, image_folder: str, posed_sfm: str, gt: np.ndarray,
     return row, launches
 
 
+# The panorama phase: Meshroom's HDR panorama chain through the CLI, in
+# this process (`cli.main`, no process start-up), on a procedural
+# high-dynamic-range equirect: ldrToHdrSampling -> ldrToHdrCalibration (the
+# three methods) on view 0, ldrToHdrMerge of every view with the Laguerre
+# response, cameraInit -> featureExtraction -> imageMatching ->
+# featureMatching at the CLI's defaults, panoramaEstimation and nodalSfM,
+# panoramaWarping -> panoramaSeams -> panoramaMerging --seams ->
+# panoramaCompositing -> panoramaPostProcessing; panoramaPrepareImages,
+# panoramaInit, split360Images and imageProcessing on the side; the warp and
+# composite again at a width of 8192; then relativePoseEstimating and
+# globalSfM on the cli phase's features. The inputs are cut from a real
+# shoot (24 MP frames, 3-5 brackets) to 12 views of 1024^2 with 3 brackets.
+# The gates are the JAX chain's readings on the same inputs with a margin
+# (scripts/panorama_chain_reference.py on the CPU; PERF.md §6).
+PANO_GT_WH = (2048, 1024)  # the ground-truth equirect radiance
+PANO_N_VIEWS, PANO_FOV_DEG, PANO_VIEW_PX = 12, 80.0, 1024  # 30 deg apart
+PANO_EXPOSURES = (1.0, 4.0, 16.0)  # the reference's 4**i ladder of a folder
+PANO_PHI = 0.3  # the brackets' Laguerre response
+PANO_WIDTH, PANO_WIDTH_LARGE = 2048, 8192
+PANO_SEED = 0
+# The chain warps with the rotations of the sequential pairs: on the CLI's
+# default exhaustive pairs, the 42 of 66 pairs that see no overlap each
+# bring a random rotation, which the L2 averaging weights like the rest,
+# in both packages (ROADMAP §3)
+PANO_WARP_FROM = "panorama_seq.sfm"
+# The gates, from the JAX chain on the same inputs (scripts/
+# panorama_chain_reference.py, on the CPU): phi 0.30000001; merged
+# correlations >= 0.998; rotations on the sequential pairs <= 0.043 deg;
+# on the default exhaustive pairs, the 24 pairs whose views overlap
+# estimate their relative rotations before the averaging within 0.057 deg
+# of the truth (the port's engine on the CPU, on the JAX chain's matches:
+# 0.060); the averaging, which the pairs without overlap break, reads up
+# to 176.9 deg, so that run's averaged rotations are reported, not gated;
+# panorama median relative errors 0.0238 (0.0148 with the seams) at 2048
+# and 0.0130 at 8192;
+# globalSfM on the cli phase's 8 views 8/8 posed, rotations <= 2.61 deg
+# (the port's engine on the same CPU features 3.45, the largest reading)
+# and ATE 2.37 % of the radius (the port's 2.49 %).
+PANO_PHI_ERR = 1e-3
+PANO_MIN_CORR = 0.95  # merged radiance against the truth (tests/test_hdr.py)
+PANO_ROT_DEG = 0.1  # the averaged rotations of the sequential pairs
+PANO_OVERLAP_PAIRS, PANO_PAIR_DEG = 24, 0.1  # the exhaustive run's overlapping pairs, before the averaging
+PANO_MED_ERR = {PANO_WIDTH: 0.05, PANO_WIDTH_LARGE: 0.03}  # median relative error where covered
+GLOBAL_ROT_DEG, GLOBAL_ATE_FRAC = 4.5, 0.035
+
+
+def panorama_radiance() -> np.ndarray:
+    """The phase's ground-truth equirect radiance, (H, W) float32: smoothed
+    noise at three scales (wrapped in longitude), exponentiated to span
+    ~0.003-3 around a median of 0.08, so that each of the three exposures
+    clips a different part of the scene and the shortest one all but
+    0.3 % of it."""
+    import scipy.ndimage as ndi
+
+    W, H = PANO_GT_WH
+    rng = np.random.RandomState(PANO_SEED)
+    n = np.zeros((H, W))
+    for sigma, weight in ((W / 80.0, 0.75), (W / 320.0, 0.5), (W / 1280.0, 0.3)):
+        layer = ndi.gaussian_filter(rng.randn(H, W), sigma, mode=("nearest", "wrap"))
+        n += weight * layer / layer.std()
+    n /= n.std()
+    return (0.08 * np.exp(0.9 * n)).astype(np.float32)
+
+
+def make_panorama_inputs(work: str, device) -> dict:
+    """The phase's inputs in `work`: the ground-truth radiance (gt.npy), its
+    PANO_N_VIEWS pinhole views split on `device` (the port's split_equirect),
+    and 3 brackets a view through the Laguerre curve, clipped to [0, 1], as
+    .npy in one folder a view (brackets/view_XX/b{0,1,2}.npy, so that the
+    reference's exposure ladder 4**i is each folder's own). Returns the
+    truth: radiance, views, K, world->camera rotations, focal."""
+    from alicevision_tpu_torch.hdr import laguerre_apply
+    from alicevision_tpu_torch.image.processing import split_equirect
+
+    gt = panorama_radiance()
+    os.makedirs(work, exist_ok=True)
+    np.save(os.path.join(work, "gt.npy"), gt)
+    views, K, R = split_equirect(torch.as_tensor(gt, device=device), n_splits=PANO_N_VIEWS, fov_deg=PANO_FOV_DEG,
+                                 out_size=PANO_VIEW_PX)
+    for v in range(PANO_N_VIEWS):
+        folder = os.path.join(work, "brackets", f"view_{v:02d}")
+        os.makedirs(folder, exist_ok=True)
+        for b, t in enumerate(PANO_EXPOSURES):
+            ldr = laguerre_apply(PANO_PHI, torch.clamp(views[v] * t, 0.0, 1.0))
+            np.save(os.path.join(folder, f"b{b}.npy"), ldr.cpu().numpy())
+    return {"gt": gt, "views": views.cpu().numpy(), "K": K.cpu().numpy(), "R": R,
+            "focal_px": float(K[0, 0])}
+
+
+def panorama_chain(work: str, focal_px: float) -> list:
+    """The chain's commands over `work`, as (name, argv): the HDR trio (the
+    calibration by each method on view 0), one merge a view, the front
+    stages at the CLI's defaults, the rotation engines, the warp, seams,
+    merge, composite and post-processing, and the side commands."""
+    def w(*p):
+        return os.path.join(work, *p)
+
+    b0 = w("brackets", "view_00")
+    steps = [("ldrToHdrSampling", ["--inputFolder", b0, "--output", w("hdr", "samples.npz")])]
+    for m in ("laguerre", "grossberg", "debevec"):
+        steps.append(("ldrToHdrCalibration", ["--input", w("hdr", "samples.npz"), "--output",
+                                              w("hdr", f"response_{m}.npz"), "--calibrationMethod", m]))
+    for v in range(PANO_N_VIEWS):
+        steps.append(("ldrToHdrMerge", ["--inputFolder", w("brackets", f"view_{v:02d}"), "--output",
+                                        w("merged", f"view_{v:02d}.npy"), "--response",
+                                        w("hdr", "response_laguerre.npz")]))
+    init = w("cameraInit.sfm")
+    feats, matches = w("features"), w("matches.npz")
+    steps += [
+        ("cameraInit", ["--imageFolder", w("merged"), "--output", init, "--defaultFocalPx", repr(focal_px)]),
+        ("featureExtraction", ["--input", init, "--output", feats]),
+        ("imageMatching", ["--input", init, "--features", feats, "--output", w("pairs.txt")]),
+        ("featureMatching", ["--input", init, "--features", feats, "--pairs", w("pairs.txt"), "--output", matches]),
+        ("panoramaEstimation", ["--input", init, "--features", feats, "--matches", matches, "--output",
+                                w("panorama.sfm")]),
+        ("nodalSfM", ["--input", init, "--features", feats, "--matches", matches, "--output", w("nodal.sfm")]),
+        # the ring's neighbours only: (i, i+1) and (i, i+2)
+        ("imageMatching", ["--input", init, "--features", feats, "--output", w("pairs_seq.txt"), "--method",
+                           "sequential", "--nbNeighbors", "2"]),
+        ("featureMatching", ["--input", init, "--features", feats, "--pairs", w("pairs_seq.txt"), "--output",
+                             w("matches_seq.npz")]),
+        ("panoramaEstimation", ["--input", init, "--features", feats, "--matches", w("matches_seq.npz"),
+                                "--output", w("panorama_seq.sfm")]),
+        ("panoramaWarping", ["--input", w(PANO_WARP_FROM), "--output", w("warped"), "--panoWidth", str(PANO_WIDTH)]),
+        ("panoramaSeams", ["--input", w("warped"), "--output", w("seams.npz")]),
+        ("panoramaMerging", ["--input", w("warped"), "--seams", w("seams.npz"), "--output", w("pano_seams.npy")]),
+        ("panoramaCompositing", ["--input", w("warped"), "--output", w("pano.npy")]),
+        ("panoramaPostProcessing", ["--input", w("pano.npy"), "--output", w("pano_post.npy"), "--fillHoles",
+                                    "--crop"]),
+        ("panoramaPrepareImages", ["--inputFolder", b0, "--output", w("prepared")]),
+        ("panoramaInit", ["--imageFolder", w("merged"), "--output", w("pano_init.sfm"), "--defaultFocalPx",
+                          repr(focal_px)]),
+        ("split360Images", ["--input", w("gt.npy"), "--output", w("split"), "--nbSplits", str(PANO_N_VIEWS), "--fov",
+                            repr(PANO_FOV_DEG), "--outSize", "256"]),
+        ("imageProcessing", ["--input", os.path.join(b0, "b1.npy"), "--output", w("processed.npy"), "--scale",
+                             "0.5", "--sharpen", "0.5", "--contrast", "1.2"]),
+    ]
+    return steps
+
+
+def run_panorama_chain(main, work: str, inputs: dict, extra=(), device=None) -> dict:
+    """Each command of `panorama_chain` through `main` (a CLI's `main`),
+    timed to the end of its device work, with its device peak on a card.
+    Returns {name (#k for a repeated one): {"seconds", "device_peak_gib"}};
+    raises at the first command that fails."""
+    on_card = device is not None and torch.device(device).type == "cuda"
+    rows, seen = {}, {}
+    for name, argv in panorama_chain(work, inputs["focal_px"]):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        rc = main([name, *argv, *extra])
+        if on_card:
+            torch.cuda.synchronize(device)
+        if rc != 0:
+            raise RuntimeError(f"panorama: `{name} {' '.join(argv)}` exited {rc}")
+        k = seen[name] = seen.get(name, 0) + 1
+        rows[name if k == 1 else f"{name}#{k}"] = {
+            "seconds": time.perf_counter() - t0,
+            "device_peak_gib": torch.cuda.max_memory_allocated(device) / 2**30 if on_card else None}
+    return rows
+
+
+def _gt_on_canvas(gt: np.ndarray, width: int) -> np.ndarray:
+    """The ground-truth equirect resampled onto a canvas of `width` x
+    width / 2 (pixel u of either maps to longitude (u / W - 0.5) 2 pi)."""
+    H, W = gt.shape
+    if width == W:
+        return gt
+    from alicevision_tpu_torch.image.filtering import bilinear_sample
+
+    s = W / width
+    ys, xs = np.meshgrid(np.arange(width // 2) * s, np.arange(width) * s, indexing="ij")
+    uv = torch.as_tensor(np.stack([xs, ys], -1), dtype=torch.float32)
+    return bilinear_sample(torch.as_tensor(gt), uv).numpy()
+
+
+def panorama_error(pano: np.ndarray, gt: np.ndarray, covered: np.ndarray) -> float:
+    """Median relative error of a panorama against the truth where it is
+    covered (away from the canvas's last column and row, where the truth's
+    bilinear resampling has no right or lower neighbour)."""
+    ref = _gt_on_canvas(gt, pano.shape[1])
+    ok = covered.copy()
+    ok[-2:], ok[:, -2:] = False, False
+    return float(np.median(np.abs(pano[ok] - ref[ok]) / ref[ok]))
+
+
+def overlap_pair_errors(work: str, inputs: dict, device) -> dict:
+    """The relative rotation of each pair of the default exhaustive run
+    (matches.npz) as panoramaEstimation's engine estimates it before the
+    averaging: `robust_rotation` on `device`, pair after pair with one
+    generator seeded 0 as `RotationSfM.run` draws. Returns the rotation
+    errors against the truth R_j R_i^T of the pairs whose views overlap
+    (optical axes less than the field of view apart), keyed "i_j"."""
+    from alicevision_tpu_torch.pipeline.cli import rotation_pair_bearings
+    from alicevision_tpu_torch.sfm.rotation_sfm import robust_rotation
+
+    sc = sfmdata.load(os.path.join(work, "cameraInit.sfm"))
+    focal, im_size = float(np.mean(sc.scale)), (float(sc.sizes[0, 0]), float(sc.sizes[0, 1]))
+    gen = torch.Generator(device=device).manual_seed(0)
+    R_true, out = inputs["R"], {}
+    for (i, j), (bi, bj) in rotation_pair_bearings(sc, os.path.join(work, "features"),
+                                                   os.path.join(work, "matches.npz"), device).items():
+        R, _, _ = robust_rotation(gen, bi, bj, focal, im_size)
+        truth = R_true[j] @ R_true[i].T
+        if _angle_deg(truth) < PANO_FOV_DEG:
+            out[f"{i}_{j}"] = _angle_deg(R.cpu().numpy().astype(np.float64) @ truth.T)
+    return out
+
+
+def panorama_report(work: str, inputs: dict, device) -> dict:
+    """The chain's outputs in `work` against the truth: phi of each
+    calibration method, each merged view's correlation with its true
+    radiance, the rotation engines' errors (their gauge R_0 = I is the
+    truth's), the exhaustive run's overlapping pairs before the averaging
+    (`overlap_pair_errors` on `device`), the panoramas' median errors, and
+    the side outputs."""
+    w = lambda *p: os.path.join(work, *p)  # noqa: E731
+    out = {}
+    with np.load(w("hdr", "response_laguerre.npz")) as z:
+        out["phi"] = float(z["phi"])
+    for m, key in (("grossberg", "coeffs"), ("debevec", "g")):
+        with np.load(w("hdr", f"response_{m}.npz")) as z:
+            out[f"{m}_finite"] = bool(np.isfinite(z[key]).all())
+    corr = []
+    for v in range(len(inputs["R"])):
+        merged = np.load(w("merged", f"view_{v:02d}.npy"))
+        corr.append(float(np.corrcoef(merged.ravel(), inputs["views"][v].ravel())[0, 1]))
+    out["merged_corr"] = corr
+    for name in ("panorama", "panorama_seq"):
+        est = sfmdata.load(w(f"{name}.sfm"))
+        R_est = est.pose_R[est.view_pose]
+        out[f"{name}_rotation_err_deg"] = [_angle_deg(Re @ Rt.T) for Re, Rt in zip(R_est, inputs["R"])]
+    with open(w("panorama.sfm")) as a, open(w("nodal.sfm")) as b:
+        out["nodal_equal"] = a.read() == b.read()
+    out["overlap_pair_err_deg"] = overlap_pair_errors(work, inputs, device)
+    for name in ("matches", "matches_seq"):
+        with np.load(w(f"{name}.npz")) as z:
+            out[f"{name}_pairs"] = len(z.files)
+            out[f"{name}_total"] = int(sum(len(z[k]) for k in z.files))
+    masks = [np.load(w("warped", f)) for f in sorted(os.listdir(w("warped"))) if f.endswith("_mask.npy")]
+    covered = np.any(masks, axis=0)
+    out["covered_frac"] = float(covered.mean())
+    for name in ("pano", "pano_seams"):
+        pano = np.load(w(f"{name}.npy"))
+        out[f"{name}_shape"] = list(pano.shape)
+        out[f"{name}_median_rel_err"] = panorama_error(pano, inputs["gt"], covered)
+    # fillHoles keeps every covered pixel and divides by weights that reach
+    # its 1e-6 floor far from them, where the values overflow (both
+    # packages, ROADMAP §3); --crop then keeps the whole canvas
+    pano = np.load(w("pano.npy"))
+    post = np.load(w("pano_post.npy"))
+    out["post_shape"] = list(post.shape)
+    out["post_finite_frac"] = float(np.isfinite(post).mean())
+    known = pano > 0
+    out["post_keeps_covered"] = bool(post.shape == pano.shape and np.array_equal(post[known], pano[known]))
+    # split360Images against split_equirect (on the CPU), within the 8-bit
+    # quantisation of its PNGs: a truncation, so in [0, 1/255)
+    from alicevision_tpu_torch.image.io import read_image
+    from alicevision_tpu_torch.image.processing import split_equirect
+
+    n = len(inputs["R"])
+    ref, _, _ = split_equirect(torch.as_tensor(inputs["gt"]), n_splits=n, fov_deg=PANO_FOV_DEG, out_size=256)
+    ref = np.clip(ref.numpy(), 0.0, 1.0)
+    got = np.stack([read_image(w("split", f"split_{i:02d}.png")) for i in range(n)])
+    out["split_quantisation"] = [float((ref - got).min()), float((ref - got).max())]
+    with np.load(w("split", "cameras.npz")) as z:
+        out["split_R_err"] = float(np.abs(z["R"] - inputs["R"]).max())
+    out["prepared"] = len(os.listdir(w("prepared")))
+    out["init_views"] = int(sfmdata.load(w("pano_init.sfm")).n_views)
+    out["processed_shape"] = list(np.load(w("processed.npy")).shape)
+    return out
+
+
+def large_composite(work: str, inputs: dict, device) -> dict:
+    """`warp_to_equirect` + `composite_panorama` of the chain's merged views
+    at PANO_WIDTH_LARGE x PANO_WIDTH_LARGE / 2 on `device`, with the chain's rotations: seconds
+    (to the end of the device work), peak device memory above what was
+    allocated before, median relative error against the truth; then both
+    blur forms of `image/filtering.py` on the (V, H, W) mask stack (one
+    sigma = 2 blur of `distance_weights`), timed with CUDA events, and their
+    largest difference."""
+    from alicevision_tpu_torch.image.filtering import gaussian_blur_conv, gaussian_blur_mm
+    from alicevision_tpu_torch.panorama import composite_panorama, warp_to_equirect
+
+    sc = sfmdata.load(os.path.join(work, PANO_WARP_FROM))
+    f32 = dict(dtype=torch.float32, device=device)
+    K = torch.as_tensor(inputs["K"], **f32)
+    imgs = [torch.as_tensor(np.load(os.path.join(work, "merged", f"view_{v:02d}.npy")), **f32)
+            for v in range(sc.n_views)]
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    pairs = [warp_to_equirect(img, K, torch.as_tensor(sc.pose_R[sc.view_pose[v]], **f32),
+                               (PANO_WIDTH_LARGE, PANO_WIDTH_LARGE // 2))
+             for v, img in enumerate(imgs)]
+    warps = torch.stack([p[0] for p in pairs])
+    masks = torch.stack([p[1] for p in pairs])
+    del pairs
+    pano = composite_panorama(warps, masks)
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+    covered = masks.any(0).cpu().numpy()
+    err = panorama_error(pano.cpu().numpy(), inputs["gt"], covered)
+    m = masks.to(torch.float32)
+    del warps, masks, pano
+    mm_ms = _time_ms(lambda: gaussian_blur_mm(m, 2.0), reps=3, warmup=1)
+    conv_ms = _time_ms(lambda: gaussian_blur_conv(m, 2.0), reps=3, warmup=1)
+    diff = float((gaussian_blur_mm(m, 2.0) - gaussian_blur_conv(m, 2.0)).abs().max())
+    return {"width": PANO_WIDTH_LARGE, "views": len(imgs), "seconds": seconds, "peak_gib_above_inputs": peak,
+            "covered_frac": float(covered.mean()), "median_rel_err": err,
+            "blur_stack_shape": list(m.shape), "blur_mm_ms": mm_ms, "blur_conv_ms": conv_ms,
+            "blur_forms_max_abs_diff": diff}
+
+
+def global_sfm_report(sfm_path: str, R_true: np.ndarray, c_true: np.ndarray) -> dict:
+    """A globalSfM scene against the rendered poses: posed views, landmarks,
+    camera-centre ATE (fraction of the ring radius) after a similarity, and
+    the rotation errors after the orientations' best alignment."""
+    rep = _posed_ate(sfm_path, R_true, c_true)
+    sc = sfmdata.load(sfm_path)
+    posed = sc.valid_views()
+    errs, _ = rotation_errors_deg(sc.pose_R[sc.view_pose[posed]], R_true[posed])
+    return {"n_posed": rep["n_posed"], "landmarks": rep["landmarks"], "ate_frac_of_radius": rep["ate_frac_of_radius"],
+            "rotation_err_deg": errs}
+
+
+def run_panorama_phase(dev, work: str, cli_out: str, posed_sfm: str, smi: str) -> dict:
+    """The panorama phase's runs: the chain of `panorama_chain` in this
+    process through `cli.main` on the card, its report against the truth,
+    the warp and composite at PANO_WIDTH_LARGE, and relativePoseEstimating
+    -> globalSfM on the cli phase's features and matches (`cli_out`), with
+    the SGM launches of all of it. Returns the `panorama` row."""
+    from alicevision_tpu_torch.pipeline import cli
+
+    t_phase = time.perf_counter()
+    out = os.path.join(work, "panorama")
+    extra = ["--device", str(dev)]
+    sgm_kernel.launches.update(dict.fromkeys(sgm_kernel.launches, 0))
+    t0 = time.perf_counter()
+    inputs = make_panorama_inputs(out, dev)
+    inputs_s = time.perf_counter() - t0
+    stages_ = run_panorama_chain(cli.main, out, inputs, extra=extra, device=dev)
+    rep = panorama_report(out, inputs, dev)
+    large = large_composite(out, inputs, dev)
+
+    truth = sfmdata.load(posed_sfm)
+    R_true, c_true = truth.pose_R[truth.view_pose], truth.pose_c[truth.view_pose]
+    rel, glob = os.path.join(out, "relative_poses.npz"), os.path.join(out, "global.sfm")
+    args = ["--input", os.path.join(cli_out, "cameraInit.sfm"), "--features", os.path.join(cli_out, "features"),
+            "--matches", os.path.join(cli_out, "matches.npz")]
+    gsec = {}
+    for name, argv in (("relativePoseEstimating", [*args, "--output", rel]),
+                       ("globalSfM", [*args, "--relativePoses", rel, "--output", glob])):
+        t0 = time.perf_counter()
+        if cli.main([name, *argv, *extra]) != 0:
+            raise RuntimeError(f"panorama: {name} on the cli phase's features failed")
+        torch.cuda.synchronize(dev)
+        gsec[name] = time.perf_counter() - t0
+    gl = global_sfm_report(glob, R_true, c_true)
+    gl["seconds"] = gsec
+    launches = dict(sgm_kernel.launches)
+
+    row = {
+        "device": smi,
+        "inputs": {"gt_wh": list(PANO_GT_WH), "views": PANO_N_VIEWS, "view_px": PANO_VIEW_PX, "fov_deg": PANO_FOV_DEG,
+                   "exposures": list(PANO_EXPOSURES), "phi": PANO_PHI, "seconds": inputs_s},
+        "stage_seconds": {k: v["seconds"] for k, v in stages_.items()},
+        "stage_device_peak_gib": {k: v["device_peak_gib"] for k, v in stages_.items()},
+        "chain_seconds": sum(v["seconds"] for v in stages_.values()),
+        "report": rep,
+        "large": large,
+        "global": gl,
+        "sgm_launches": launches,
+        "phase_seconds": time.perf_counter() - t_phase,
+    }
+    print("panorama " + json.dumps(row), flush=True)
+    return row
+
+
+def check_panorama(dev, work: str, cli_out: str, posed_sfm: str, smi: str) -> tuple:
+    """The panorama phase (`run_panorama_phase`) and its gates. Returns (the
+    `panorama` row, its SGM launches, all 0)."""
+    row = run_panorama_phase(dev, work, cli_out, posed_sfm, smi)
+    rep, large, gl, launches = row["report"], row["large"], row["global"], row["sgm_launches"]
+    bad = []
+    if not abs(rep["phi"] - PANO_PHI) < PANO_PHI_ERR:
+        bad.append(f"Laguerre phi {rep['phi']}, expected within {PANO_PHI_ERR} of {PANO_PHI}")
+    if not (rep["grossberg_finite"] and rep["debevec_finite"]):
+        bad.append("a Grossberg or Debevec response is not finite")
+    if not min(rep["merged_corr"]) >= PANO_MIN_CORR:
+        bad.append(f"merged radiance correlations {rep['merged_corr']}, expected >= {PANO_MIN_CORR}")
+    if not max(rep["panorama_seq_rotation_err_deg"]) < PANO_ROT_DEG:
+        bad.append(f"panorama_seq: rotation errors {rep['panorama_seq_rotation_err_deg']} deg, expected "
+                   f"< {PANO_ROT_DEG}")
+    pairs = rep["overlap_pair_err_deg"]
+    if not (len(pairs) == PANO_OVERLAP_PAIRS and max(pairs.values()) < PANO_PAIR_DEG):
+        bad.append(f"panorama: overlapping pairs' rotation errors {pairs} deg, expected {PANO_OVERLAP_PAIRS} "
+                   f"pairs < {PANO_PAIR_DEG}")
+    if not rep["nodal_equal"]:
+        bad.append("nodalSfM's scene differs from panoramaEstimation's")
+    for key, width in (("pano", PANO_WIDTH), ("pano_seams", PANO_WIDTH)):
+        if not (rep[f"{key}_shape"] == [width // 2, width] and rep[f"{key}_median_rel_err"] < PANO_MED_ERR[width]):
+            bad.append(f"{key}: {rep[f'{key}_shape']}, median error {rep[f'{key}_median_rel_err']}, expected "
+                       f"< {PANO_MED_ERR[width]}")
+    if not large["median_rel_err"] < PANO_MED_ERR[PANO_WIDTH_LARGE]:
+        bad.append(f"the {PANO_WIDTH_LARGE} composite's median error {large['median_rel_err']}, expected "
+                   f"< {PANO_MED_ERR[PANO_WIDTH_LARGE]}")
+    # the fill overflows away from the covered pixels in both packages (the
+    # reference's output is finite exactly where the panorama is covered)
+    if not (rep["post_keeps_covered"] and rep["post_finite_frac"] >= rep["covered_frac"] - 1e-6):
+        bad.append(f"panoramaPostProcessing: {rep['post_shape']}, covered pixels kept {rep['post_keeps_covered']}, "
+                   f"finite {rep['post_finite_frac']}, expected >= the covered {rep['covered_frac']}")
+    # 8-bit truncation, in [0, 1/255), widened by the float rounding between
+    # the card's sampling and the CPU's (the JAX chain: -1.5e-5)
+    if not (-1e-4 <= rep["split_quantisation"][0] and rep["split_quantisation"][1] < 1.0 / 255 + 1e-4
+            and rep["split_R_err"] < 1e-6):
+        bad.append(f"split360Images: {rep['split_quantisation']}, R {rep['split_R_err']}")
+    if not (rep["prepared"] == len(PANO_EXPOSURES) and rep["init_views"] == PANO_N_VIEWS
+            and rep["processed_shape"] == [PANO_VIEW_PX // 2] * 2):
+        bad.append(f"side commands: {rep['prepared']} prepared, {rep['init_views']} views, "
+                   f"{rep['processed_shape']} processed")
+    if not (gl["n_posed"] == 8 and max(gl["rotation_err_deg"]) < GLOBAL_ROT_DEG
+            and gl["ate_frac_of_radius"] < GLOBAL_ATE_FRAC):
+        bad.append(f"globalSfM: {gl['n_posed']} posed, rotations {gl['rotation_err_deg']} deg, ATE "
+                   f"{gl['ate_frac_of_radius']}, expected 8, < {GLOBAL_ROT_DEG}, < {GLOBAL_ATE_FRAC}")
+    if any(launches.values()):
+        bad.append(f"the panorama path launched SGM kernels: {launches}")
+    if bad:
+        raise RuntimeError("panorama: " + "; ".join(bad))
+    return row, launches
+
+
 def kernels_line(rows: list, agg_rows: list, launches: dict) -> dict:
     """The `kernels` entry of the SGM kernel, named after the entry the main
     path launches. Its numbers are one 640x480 D = 96 map's two
@@ -2131,6 +2587,9 @@ def main() -> int:
         # 7b. Meshroom's chain through the CLI, one process a stage
         cli_row, cli_launches = check_cli(dev, work, os.path.join(work, "images"), sfm, gt, smi)
 
+        # 7c. the HDR panorama chain, and global SfM on the cli phase's features
+        pano_row, pano_launches = check_panorama(dev, work, os.path.join(work, "cli"), sfm, smi)
+
         # 8. the hard scene: the engine on 40 distorted views, and the images
         # path at the reference's operating point
         hard = check_hard_scene(dev, work, smi)
@@ -2148,7 +2607,9 @@ def main() -> int:
     print(json.dumps({"pipeline": pipe}), flush=True)
     print(json.dumps({"ba": ba_rows}), flush=True)
     print(json.dumps({"cli": cli_row}), flush=True)
-    launches = {k: launches[k] + pipe_launches[k] + full_launches[k] + cli_launches[k] for k in launches}
+    print(json.dumps({"panorama": pano_row}), flush=True)
+    launches = {k: launches[k] + pipe_launches[k] + full_launches[k] + cli_launches[k] + pano_launches[k]
+                for k in launches}
     print(json.dumps({"kernels": [kernels_line(rows, agg_rows, launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

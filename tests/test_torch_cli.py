@@ -347,7 +347,7 @@ def test_subprocess_contract(scene, tmp_path):
     assert "featureExtraction done" in r.stderr
     r = _run("featureExtraction", "--input", str(tmp_path / "nope.sfm"), "--output", str(tmp_path / "x"), *CPU)
     assert r.returncode != 0 and "fatal" in r.stderr.lower() and "Traceback" not in r.stderr
-    r = _run("panoramaCompositing", "--input", str(tmp_path), "--output", str(tmp_path / "p.png"), *CPU)
+    r = _run("lidarMerging", "--input", str(tmp_path / "set.json"), "--output", str(tmp_path / "m.ply"), *CPU)
     assert r.returncode == 1 and "ROADMAP item 13" in r.stderr and "Traceback" not in r.stderr
     r = _run("exportMatlab", "--input", sfm, "--output", str(tmp_path / "m"), *CPU)
     assert r.returncode == 1 and "ROADMAP item 13" in r.stderr
