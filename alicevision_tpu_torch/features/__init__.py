@@ -1,10 +1,24 @@
 from . import io
+from .markers import (
+    MarkerDetection,
+    detect_apriltags,
+    detect_cctags,
+    markers_to_features,
+    render_apriltag,
+    render_cctag,
+)
 from .sift import SiftConfig, SiftFeatures, extract as extract_sift, quantize_desc
 
 __all__ = [
+    "MarkerDetection",
     "SiftConfig",
     "SiftFeatures",
+    "detect_apriltags",
+    "detect_cctags",
     "extract_sift",
     "io",
+    "markers_to_features",
     "quantize_desc",
+    "render_apriltag",
+    "render_cctag",
 ]

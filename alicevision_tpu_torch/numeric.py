@@ -3,8 +3,8 @@
 Port of the parts of `alicevision_tpu/numeric.py` that the ported solvers
 need: `f32_matmuls`, which runs a solver with full float32 matrix products,
 the closed-form real cubic roots of the 7-point solver, the Ferrari quartic
-of P3P, and homogeneous coordinates; and `eigh` / `svd`, which give NaN for
-a matrix with a non-finite entry, as JAX's decompositions do, where
+of P3P, `skew`, and homogeneous coordinates; and `eigh` / `svd`, which give
+NaN for a matrix with a non-finite entry, as JAX's decompositions do, where
 torch's raise for the whole batch.
 """
 
@@ -160,6 +160,13 @@ def quartic_roots_real(c4, c3, c2, c1, c0):
     roots = torch.stack([y0a, y0b, y1a, y1b], dim=-1) - (a / 4.0)[..., None]
     valid = torch.stack([ok0, ok0, ok1, ok1], dim=-1)
     return roots, valid
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Cross-product matrix of (..., 3) vectors: (..., 3, 3)."""
+    from .geometry.rotations import hat
+
+    return hat(v)
 
 
 def homogeneous(x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 _COMMANDS: list = []  # (name, setup_fn, handler_fn), in the reference's order
 
@@ -50,7 +51,17 @@ def _setup_merge(p):
                    help="align the second scene onto the first before merging")
 
 
-command("sfmMerge", _setup_merge)(_not_ported)
+def _sfm_merge(args):
+    """ref: src/software/utils/main_sfmMerge.cpp"""
+    from .. import sfmdata
+    from ..sfmdata.merge import merge_scenes
+
+    out = merge_scenes(sfmdata.load(args.input), sfmdata.load(args.input2), align=args.alignment)
+    sfmdata.save(out, args.output)
+    print(json.dumps({"views": out.n_views, "landmarks": out.n_landmarks}))
+
+
+command("sfmMerge", _setup_merge)(_sfm_merge)
 
 
 def _setup_split(p):
@@ -59,7 +70,18 @@ def _setup_split(p):
     p.add_argument("--outputNonReconstructed", default=None)
 
 
-command("sfmSplitReconstructed", _setup_split)(_not_ported)
+def _sfm_split(args):
+    """ref: src/software/utils/main_sfmSplitReconstructed.cpp"""
+    from .. import sfmdata
+    from ..sfmdata.merge import split_reconstructed
+
+    rec, non = split_reconstructed(sfmdata.load(args.input))
+    sfmdata.save(rec, args.output)
+    if args.outputNonReconstructed:
+        sfmdata.save(non, args.outputNonReconstructed)
+
+
+command("sfmSplitReconstructed", _setup_split)(_sfm_split)
 
 
 def _setup_align(p):
@@ -92,7 +114,21 @@ def _setup_transfer(p):
     p.add_argument("--transferIntrinsics", action="store_true")
 
 
-command("sfmTransfer", _setup_transfer)(_not_ported)
+def _sfm_transfer(args):
+    """ref: src/software/utils/main_sfmTransfer.cpp"""
+    from .. import sfmdata
+    from ..sfm.transfer import transfer_intrinsics, transfer_poses
+
+    sc = sfmdata.load(args.input)
+    ref = sfmdata.load(args.reference)
+    by = "filename" if args.method == "from_filepath" else "viewId"
+    n_pose = transfer_poses(sc, ref, match_by=by) if args.transferPoses else 0
+    n_intr = transfer_intrinsics(sc, ref, match_by=by) if args.transferIntrinsics else 0
+    sfmdata.save(sc, args.output)
+    print(json.dumps({"poses": n_pose, "intrinsics": n_intr}))
+
+
+command("sfmTransfer", _setup_transfer)(_sfm_transfer)
 
 
 def _setup_applycal(p):
@@ -102,7 +138,18 @@ def _setup_applycal(p):
     p.add_argument("--output", required=True)
 
 
-command("applyCalibration", _setup_applycal)(_not_ported)
+def _apply_calibration(args):
+    """ref: src/software/utils/main_applyCalibration.cpp"""
+    from .. import sfmdata
+    from ..sfm.transfer import apply_calibration
+
+    sc = sfmdata.load(args.input)
+    n = apply_calibration(sc, args.calibration)
+    sfmdata.save(sc, args.output)
+    print(json.dumps({"intrinsics_updated": n}))
+
+
+command("applyCalibration", _setup_applycal)(_apply_calibration)
 
 
 def _setup_distances(p):
@@ -111,7 +158,24 @@ def _setup_distances(p):
     p.add_argument("--landmarksB", default="", help="comma-separated ids")
 
 
-command("sfmDistances", _setup_distances)(_not_ported)
+def _sfm_distances(args):
+    """ref: src/software/utils/main_sfmDistances.cpp"""
+    import numpy as np
+
+    from .. import sfmdata
+    from ..sfm.transfer import landmark_distances
+
+    sc = sfmdata.load(args.input)
+    if args.landmarksA and args.landmarksB:
+        a = [int(x) for x in args.landmarksA.split(",")]
+        b = [int(x) for x in args.landmarksB.split(",")]
+        print(json.dumps({"distances": landmark_distances(sc, a, b)}))
+    else:
+        ext = sc.points.max(0) - sc.points.min(0) if sc.n_landmarks else np.zeros(3)
+        print(json.dumps({"bbox_extent": [float(x) for x in ext]}))
+
+
+command("sfmDistances", _setup_distances)(_sfm_distances)
 
 
 def _setup_regression(p):
@@ -121,7 +185,18 @@ def _setup_regression(p):
     p.add_argument("--maxCenterDist", type=float, default=0.1)
 
 
-command("sfmRegression", _setup_regression)(_not_ported)
+def _sfm_regression(args):
+    """ref: src/software/utils/main_sfmRegression.cpp"""
+    from .. import sfmdata
+    from ..sfm.transfer import compare_scenes
+
+    rep = compare_scenes(sfmdata.load(args.input), sfmdata.load(args.reference))
+    print(json.dumps(rep, indent=1))
+    if not (rep["rotation_deg_max"] <= args.maxRotationDeg and rep["center_dist_max"] <= args.maxCenterDist):
+        sys.exit(2)
+
+
+command("sfmRegression", _setup_regression)(_sfm_regression)
 
 
 def _setup_harmonize(p):
@@ -352,7 +427,20 @@ def _setup_frustum(p):
     p.add_argument("--zFar", type=float, default=None)
 
 
-command("frustumFiltering", _setup_frustum)(_not_ported)
+def _frustum_filtering(args):
+    """ref: src/software/pipeline/main_frustumFiltering.cpp"""
+    from .. import sfmdata
+    from ..sfm.frustum import frustum_pairs
+
+    pairs = frustum_pairs(sfmdata.load(args.input), z_near=args.zNear, z_far=args.zFar, device=args.dev)
+    _ensure_parent(args.output)
+    with open(args.output, "w") as f:
+        for i, j in pairs:
+            f.write(f"{i} {j}\n")
+    print(json.dumps({"pairs": int(len(pairs))}))
+
+
+command("frustumFiltering", _setup_frustum)(_frustum_filtering)
 
 
 def _setup_colored_cloud(p):
@@ -431,7 +519,22 @@ def _setup_sample_scene(p):
     p.add_argument("--seed", type=int, default=0)
 
 
-command("generateSampleScene", _setup_sample_scene)(_not_ported)
+def _generate_sample_scene(args):
+    """ref: src/software/utils/main_generateSampleScene.cpp,
+    sfmDataIO/sceneSample.hpp:18. The points and the noise come from a
+    torch generator seeded with --seed: the scene is the reference's up to
+    those draws (`utils/synthetic.py`)."""
+    from .. import sfmdata
+    from ..utils.synthetic import ring_scene_sfmdata
+
+    sc = ring_scene_sfmdata(n_views=args.nbViews, n_points=args.nbPoints, noise_px=args.noisePx, seed=args.seed,
+                            device=args.dev)
+    _ensure_parent(args.output)
+    sfmdata.save(sc, args.output)
+    print(json.dumps({"views": sc.n_views, "landmarks": sc.n_landmarks}))
+
+
+command("generateSampleScene", _setup_sample_scene)(_generate_sample_scene)
 
 
 def _setup_voctree_query(p):
@@ -694,6 +797,60 @@ def _setup_image_masking(p):
 command("imageMasking", _setup_image_masking)(_not_ported)
 
 
+def _obs_descriptors(sc, features_folder):
+    import numpy as np
+
+    from .stages import load_features
+
+    descs = {}
+    for v in np.unique(sc.obs_view):
+        descs[int(v)] = load_features(features_folder, int(sc.view_ids[v]))["desc"]
+    return np.stack([descs[int(v)][int(f)] for v, f in zip(sc.obs_view, sc.obs_feature)]).astype(np.float32)
+
+
+def _build_landmark_index_from_features(sc, features_folder):
+    """Mean descriptor per landmark via obs (view, feature) ids."""
+    from ..localization import build_landmark_index
+
+    return build_landmark_index(sc.points, sc.obs_landmark, _obs_descriptors(sc, features_folder))
+
+
+def _list_queries(folder):
+    return sorted(f for f in os.listdir(folder) if f.lower().endswith((".jpg", ".png", ".jpeg", ".npy")))
+
+
+def _query_features(path, row, dev, max_keypoints, downscale_to=0):
+    """SIFT of one query image on `dev` (decimated by an integer step when
+    larger than downscale_to, as the reference): (descriptors (N, D),
+    undistorted normalized coordinates (N, 2)) on the host."""
+    import numpy as np
+    import torch
+
+    from .. import camera as camm
+    from ..features import sift as siftm
+    from ..image.io import read_image
+
+    img = read_image(path, grayscale=True)
+    scale = 1.0
+    if downscale_to and max(img.shape) > downscale_to:
+        s = max(img.shape) // downscale_to + 1
+        img = img[::s, ::s]
+        scale = float(s)
+    feats = siftm.extract(torch.as_tensor(np.ascontiguousarray(img), dtype=torch.float32, device=dev),
+                          siftm.SiftConfig(max_keypoints=max_keypoints))
+    valid = feats.valid
+    p = camm.ima2cam(row, feats.xy[valid] * scale)
+    p = camm.remove_distortion(row.disto_kind, row.disto, p)
+    return feats.desc[valid].cpu().numpy(), p.cpu().numpy()
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def _setup_camera_loc(p):
     p.add_argument("--input", required=True, help="reconstructed .sfm")
     p.add_argument("--features", required=True, help="features of the scene views")
@@ -706,7 +863,66 @@ def _setup_camera_loc(p):
                         "(VoctreeLocalizer.hpp); direct: landmark index")
 
 
-command("cameraLocalization", _setup_camera_loc)(_not_ported)
+def _camera_localization(args):
+    """ref: src/software/pipeline/main_cameraLocalization.cpp,
+    localization/VoctreeLocalizer.hpp:34-153: method=voctree retrieves the
+    most similar database views and matches only their observations;
+    method=direct matches the mean-descriptor landmark index. RANSAC draws
+    from one generator seeded 0 on the device, across the queries. The
+    seconds of each step, summed over the queries, go to stderr."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from .. import sfmdata
+    from ..localization import localize_image
+
+    dev = args.dev
+    sc = sfmdata.load(args.input)
+    method = getattr(args, "method", "direct")
+    if method == "voctree":
+        from ..localization.voctree_localizer import VoctreeLocalizer
+
+        vloc = VoctreeLocalizer(sc.points, sc.obs_landmark, sc.obs_view, _obs_descriptors(sc, args.features),
+                                device=dev)
+    else:
+        lm_desc, lm_pts = _build_landmark_index_from_features(sc, args.features)
+    fx = float(np.mean(sc.scale[:, 0]))
+    w, h = float(sc.sizes[0, 0]), float(sc.sizes[0, 1])
+    row = sc.intrinsics_table(device=dev).row(0)
+
+    results = {}
+    seconds = {"sift": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for fname in _list_queries(args.queryFolder):
+        t0 = time.perf_counter()
+        desc, p = _query_features(os.path.join(args.queryFolder, fname), row, dev, args.maxKeypoints,
+                                  args.downscaleTo)
+        _sync(dev)
+        seconds["sift"] += time.perf_counter() - t0
+        if method == "voctree":
+            res = vloc.localize(gen, desc, p, fx, (w, h), seconds=seconds)
+        else:
+            t0 = time.perf_counter()
+            res = localize_image(gen, lm_desc, lm_pts, desc, p, fx, (w, h), device=dev)
+            _sync(dev)
+            seconds["matching_and_resection"] = seconds.get("matching_and_resection", 0.0) + time.perf_counter() - t0
+        results[fname] = {
+            "success": bool(res.success),
+            "n_inliers": int(res.n_inliers),
+            "R": np.asarray(res.R).tolist(),
+            "c": np.asarray(res.c).tolist(),
+        }
+    print(f"[av] cameraLocalization seconds by step: {json.dumps(seconds)}", file=sys.stderr)
+    _ensure_parent(args.output)
+    with open(args.output, "w") as f:
+        json.dump(results, f, indent=1)
+    n_ok = sum(r["success"] for r in results.values())
+    print(json.dumps({"localized": n_ok, "total": len(results)}))
+
+
+command("cameraLocalization", _setup_camera_loc)(_camera_localization)
 
 
 def _setup_rig_calib(p):
@@ -715,7 +931,36 @@ def _setup_rig_calib(p):
     p.add_argument("--output", required=True, help="rig .json")
 
 
-command("rigCalibration", _setup_rig_calib)(_not_ported)
+def _rig_calibration(args):
+    """ref: src/software/pipeline/main_rigCalibration.cpp, rig/Rig.cpp"""
+    import numpy as np
+
+    from .. import sfmdata
+    from ..misc.rig import calibrate_rig
+
+    scenes = [sfmdata.load(p) for p in args.inputs.split(",")]
+    poses_per_cam = []
+    frames = None
+    for sc in scenes:
+        fmap = {int(sc.view_frames[v]): v for v in sc.valid_views()}
+        frames = sorted(fmap) if frames is None else [f for f in frames if f in fmap]
+        poses_per_cam.append(fmap)
+    if not frames:
+        raise RuntimeError("no common frames across rig cameras")
+    tracked = []
+    for sc, fmap in zip(scenes, poses_per_cam):
+        R = np.stack([sc.pose_R[sc.view_pose[fmap[f]]] for f in frames])
+        c = np.stack([sc.pose_c[sc.view_pose[fmap[f]]] for f in frames])
+        tracked.append((R, c))
+    out = [{"R": np.asarray(R_rel).tolist(), "c": np.asarray(c_rel).tolist()}
+           for R_rel, c_rel in calibrate_rig(tracked, device=args.dev)]
+    _ensure_parent(args.output)
+    with open(args.output, "w") as f:
+        json.dump({"subposes": out, "frames": len(frames)}, f, indent=1)
+    print(json.dumps({"cameras": len(out), "frames": len(frames)}))
+
+
+command("rigCalibration", _setup_rig_calib)(_rig_calibration)
 
 
 def _setup_rig_transform(p):
@@ -725,7 +970,30 @@ def _setup_rig_transform(p):
     p.add_argument("--output", required=True)
 
 
-command("rigTransform", _setup_rig_transform)(_not_ported)
+def _rig_transform(args):
+    """Apply a calibrated sub-pose to a rig trajectory
+    (ref: src/software/utils/main_rigTransform.cpp)."""
+    import numpy as np
+
+    from .. import sfmdata
+
+    sc = sfmdata.load(args.input)
+    with open(args.rig) as f:
+        sub = json.load(f)["subposes"][args.camera]
+    R_rel = np.asarray(sub["R"])
+    c_rel = np.asarray(sub["c"])
+    for v in sc.valid_views():
+        p = int(sc.view_pose[v])
+        R0, c0 = sc.pose_R[p], sc.pose_c[p]
+        # camera k's pose: the sub-pose composed with the rig (camera 0) pose
+        # (both computed before R0, a view of the table, is overwritten)
+        R, c = R_rel @ R0, c0 + R0.T @ c_rel
+        sc.pose_R[p] = R
+        sc.pose_c[p] = c
+    sfmdata.save(sc, args.output)
+
+
+command("rigTransform", _setup_rig_transform)(_rig_transform)
 
 
 def _setup_rig_loc(p):
@@ -742,7 +1010,100 @@ def _setup_rig_loc(p):
     )
 
 
-command("rigLocalization", _setup_rig_loc)(_not_ported)
+def _rig_localization(args):
+    """Localize the rig frame per query timestamp. --fusion joint: 2D-3D
+    matches from every rig camera feed one joint non-central resection with
+    the known sub-poses (ref: src/software/pipeline/main_rigLocalization.cpp,
+    localization/rigResection.cpp, OpenGV's non-central PnP analog);
+    --fusion average: per-camera cameraLocalization (direct) + a quaternion
+    mean."""
+    import numpy as np
+    import torch
+
+    from ..geometry import mat_to_quat, quat_to_mat
+    from ..misc.rig import average_quaternions
+
+    dev = args.dev
+    with open(args.rig) as f:
+        rig = json.load(f)
+    folders = args.queryFolders.split(",")
+
+    if getattr(args, "fusion", "joint") == "joint":
+        from .. import sfmdata
+        from ..localization.localizer import match_2d3d
+        from ..localization.voctree_localizer import rig_resection
+
+        sc = sfmdata.load(args.input)
+        lm_desc, lm_pts = _build_landmark_index_from_features(sc, args.features)
+        fx = float(np.mean(sc.scale[:, 0]))
+        w, h = float(sc.sizes[0, 0]), float(sc.sizes[0, 1])
+        row = sc.intrinsics_table(device=dev).row(0)
+        # the sub-pose chain x_cam_k = sub_R x_frame + sub_t from the rig
+        # json's (R_rel, c_rel) pose composition
+        sub_R = np.stack([np.asarray(s["R"]) for s in rig["subposes"]])
+        sub_t = np.stack([-np.asarray(s["R"]) @ np.asarray(s["c"]) for s in rig["subposes"]])
+        names = sorted(set.intersection(*[set(_list_queries(f)) for f in folders]))
+        fused = {}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for name in names:
+            world_per_cam, obs_per_cam = [], []
+            for folder in folders:
+                desc, p = _query_features(os.path.join(folder, name), row, dev, 2048)
+                wpts, onorm = match_2d3d(lm_desc, lm_pts, desc, p, device=dev)
+                world_per_cam.append(wpts)
+                obs_per_cam.append(onorm)
+            res = rig_resection(gen, world_per_cam, obs_per_cam, sub_R, sub_t, fx, (w, h), device=dev)
+            fused[name] = {
+                "success": bool(res.success),
+                "n_inliers": int(res.n_inliers),
+                "R": np.asarray(res.R_frame).tolist(),
+                "c": np.asarray(res.c_frame).tolist(),
+            }
+        _ensure_parent(args.output)
+        with open(args.output, "w") as f:
+            json.dump(fused, f, indent=1)
+        print(json.dumps({"frames": len(fused), "fusion": "joint"}))
+        return
+
+    per_cam = []
+    for k, folder in enumerate(folders):
+        out_k = args.output + f".cam{k}.json"
+        args2 = argparse.Namespace(input=args.input, features=args.features, queryFolder=folder, output=out_k,
+                                   maxKeypoints=2048, downscaleTo=1024, dev=dev)
+        _camera_localization(args2)
+        with open(out_k) as f:
+            per_cam.append(json.load(f))
+    # fuse per matching filename
+    names = sorted(set.intersection(*[set(p) for p in per_cam]))
+    fused = {}
+    for name in names:
+        qs, cs = [], []
+        for k, res in enumerate(per_cam):
+            r = res[name]
+            if not r["success"]:
+                continue
+            sub = rig["subposes"][k]
+            R_rel, c_rel = np.asarray(sub["R"]), np.asarray(sub["c"])
+            # the rig pose from camera k's pose
+            R0 = R_rel.T @ np.asarray(r["R"])
+            qs.append(R0)
+            cs.append(np.asarray(r["c"]) - R0.T @ c_rel)
+        if not qs:
+            fused[name] = {"success": False}
+            continue
+        q = average_quaternions(mat_to_quat(torch.as_tensor(np.stack(qs), dtype=torch.float32, device=dev)))
+        fused[name] = {
+            "success": True,
+            "R": quat_to_mat(q).cpu().numpy().tolist(),
+            "c": np.mean(cs, axis=0).tolist(),
+            "cameras": len(qs),
+        }
+    with open(args.output, "w") as f:
+        json.dump(fused, f, indent=1)
+    print(json.dumps({"frames": len(fused)}))
+
+
+command("rigLocalization", _setup_rig_loc)(_rig_localization)
 
 
 def _setup_sfm_to_rig(p):
@@ -750,7 +1111,30 @@ def _setup_sfm_to_rig(p):
     p.add_argument("--output", required=True, help="rig .json")
 
 
-command("sfmToRig", _setup_sfm_to_rig)(_not_ported)
+def _sfm_to_rig(args):
+    """Treat all posed views of a scene as one rig captured at a single
+    instant: sub-poses relative to the first view
+    (ref: src/software/utils/main_sfmToRig.cpp)."""
+    from .. import sfmdata
+
+    sc = sfmdata.load(args.input)
+    valid = sc.valid_views()
+    if len(valid) < 2:
+        raise RuntimeError("need >= 2 posed views")
+    p0 = int(sc.view_pose[valid[0]])
+    R0, c0 = sc.pose_R[p0], sc.pose_c[p0]
+    subposes = []
+    for v in valid:
+        p = int(sc.view_pose[v])
+        Rk, ck = sc.pose_R[p], sc.pose_c[p]
+        subposes.append({"viewId": int(sc.view_ids[v]), "R": (Rk @ R0.T).tolist(), "c": (R0 @ (ck - c0)).tolist()})
+    _ensure_parent(args.output)
+    with open(args.output, "w") as f:
+        json.dump({"subposes": subposes}, f, indent=1)
+    print(json.dumps({"cameras": len(subposes)}))
+
+
+command("sfmToRig", _setup_sfm_to_rig)(_sfm_to_rig)
 
 
 def _setup_pano_prepare(p):

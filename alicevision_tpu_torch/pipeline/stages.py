@@ -136,11 +136,13 @@ def feature_extraction(
     describer_types: str = "sift",
     device="cuda",
 ) -> None:
-    """SIFT features per view -> <viewId>.feat.npz.
+    """SIFT features per view -> <viewId>.feat.npz, plus
+    <viewId>.<marker>.npz for the marker describers.
 
-    describer_types is a comma list from {sift, dspsift} ("dspsift" selects
-    domain-size-pooled descriptors, the reference's default describer);
-    akaze, akaze_mldb, tag16h5 and cctag3 raise NotImplementedError.
+    describer_types is a comma list from {sift, dspsift, tag16h5, cctag3}
+    ("dspsift" selects domain-size-pooled descriptors, the reference's
+    default describer; the markers are detected on the host,
+    `features/markers.py`); akaze and akaze_mldb raise NotImplementedError.
     range_start/range_size mirror the reference's chunked farm runs
     (main_featureExtraction.cpp --rangeStart/--rangeSize). Images larger
     than `downscale_to` are resized (OpenCV's INTER_LINEAR, on the device)
@@ -155,13 +157,13 @@ def feature_extraction(
     for t in types:
         if t in ("akaze", "akaze_mldb"):
             _not_ported(f"describer {t!r} (features/akaze.py)", "13, front-end extras")
-        if t in ("tag16h5", "cctag3"):
-            _not_ported(f"marker describer {t!r} (features/markers.py)", "13, front-end extras")
     sc = sfmdata.load(input_sfm)
     _ensure_dir(output_folder)
     end = sc.n_views if range_size < 0 else min(sc.n_views, range_start + range_size)
     dsp = dsp or ("dspsift" in types)
-    if not ("sift" in types or "dspsift" in types):
+    with_sift = "sift" in types or "dspsift" in types
+    markers = [m for m in ("tag16h5", "cctag3") if m in types]
+    if not (with_sift or markers):
         return
     cfg = sift.SiftConfig(max_keypoints=max_keypoints, dsp=dsp, n_octaves=4)
 
@@ -180,7 +182,7 @@ def feature_extraction(
     for v in pending:
         by_shape.setdefault(imgs[v].shape, []).append(v)
     extraction_host_copies = 0
-    for (H, W), vs in by_shape.items():
+    for (H, W), vs in by_shape.items() if with_sift else ():
         scale = scales[vs[0]]
         size = (int(W * scale), int(H * scale))
         for s in range(0, len(vs), _BATCH):
@@ -209,6 +211,34 @@ def feature_extraction(
                     valid=meta[g, :, 5] > 0.5,
                 )
 
+    if markers:
+        _marker_files(sc, pending, imgs, scales, markers, output_folder, dev)
+
+
+def _marker_files(sc, views, imgs, scales, markers, output_folder, dev) -> None:
+    """<viewId>.<marker>.npz of each view: the markers detected on the host
+    in the image as the describer sees it (resized on `dev` when its scale
+    is not 1), their pixels in the full image."""
+    from ..features import markers as mk
+
+    for v in views:
+        img = imgs[v]
+        if scales[v] != 1.0:
+            H, W = img.shape
+            size = (int(W * scales[v]), int(H * scales[v]))
+            img = _resize_bilinear(torch.from_numpy(img)[None].to(dev), size)[0].cpu().numpy()
+        for mtype in markers:
+            dets = mk.detect_apriltags(img) if mtype == "tag16h5" else mk.detect_cctags(img)
+            xy, mscale, ori, desc = mk.markers_to_features(dets)
+            np.savez_compressed(
+                os.path.join(output_folder, f"{int(sc.view_ids[v])}.{mtype}.npz"),
+                xy=xy / scales[v],
+                scale=mscale / scales[v],
+                orientation=ori,
+                desc=desc,
+                ids=np.array([d.marker_id for d in dets], np.int32),
+            )
+
 
 def load_features(features_folder: str, view_id: int) -> dict:
     with np.load(os.path.join(features_folder, f"{view_id}.feat.npz")) as z:
@@ -227,7 +257,7 @@ def image_matching(
     input_sfm: str,
     features_folder: str,
     output_pairs: str,
-    method: str = "exhaustive",  # exhaustive | voctree | sequential
+    method: str = "exhaustive",  # exhaustive | voctree | sequential | frustum
     n_neighbors: int = 10,
     tree_branching: int = 8,
     tree_levels: int = 3,
@@ -245,7 +275,12 @@ def image_matching(
     elif method == "sequential":
         pairs = vt.sequential_pairs(n, window=n_neighbors)
     elif method == "frustum":
-        _not_ported("method='frustum' (sfm/frustum.py)", "13, the rest of SfM")
+        # geometric pair selection on posed scenes: SAT frustum intersection
+        # (ref: imageMatching/ImageMatching.hpp:50-58 FRUSTUM mode,
+        # sfm/FrustumFilter.cpp)
+        from ..sfm.frustum import frustum_pairs
+
+        pairs = frustum_pairs(sc, device=dev)
     elif method == "voctree":
         descs, valids = [], []
         for v in range(n):

@@ -9,10 +9,10 @@ ExpansionIteration -> ExpansionChunk.hpp:18, pluggable ExpansionPolicy
 units; driven by main_tracksBuilding / main_sfmBootstraping /
 main_sfmExpanding, main_sfmExpanding.cpp:206-211). The same batched
 primitives as IncrementalSfM, exposed as separable, externally-drivable
-steps with checkpointable state between them. The rig post-process
-(`ExpansionPostProcessRig`, over `sfm/rig_sequence.py`) is not ported yet
-(ROADMAP item 13); `ExpansionProcess` takes any object with a
-`process(engine)` method as its post-process.
+steps with checkpointable state between them. `ExpansionProcess` takes
+any object with a `process(engine)` method as its post-process, such as
+`ExpansionPostProcessRig` (the rig BA of `sfm/rig_sequence.py` on the
+engine's device).
 """
 
 from __future__ import annotations
@@ -111,6 +111,47 @@ class ExpansionHistory:
                 disto=z["intr_disto"],
             )
         engine._recompute_obs_norm()
+
+
+class ExpansionPostProcessRig:
+    """Post-expansion rig calibration (ref: ExpansionPostProcessRig.cpp):
+    when views carry rig (frame, sub) assignments, calibrate the shared
+    sub-poses and re-solve the scene over frame poses + sub-poses."""
+
+    def __init__(self, view_frame, view_sub, n_sub: int, rounds: int = 8):
+        self.view_frame = np.asarray(view_frame)
+        self.view_sub = np.asarray(view_sub)
+        self.n_sub = n_sub
+        self.rounds = rounds
+
+    def process(self, engine: IncrementalSfM):
+        from .rig_sequence import solve_rig_sequence
+
+        res = engine.res
+        keep = res.point_valid[engine.obs_track] & res.posed[engine.obs_view] & engine.obs_inlier
+        R_v, c_v, sub_R, sub_t, _, _, pts, _ = solve_rig_sequence(
+            res.pose_R,
+            res.pose_c,
+            res.posed,
+            self.view_frame,
+            self.view_sub,
+            self.n_sub,
+            res.points[res.point_valid],
+            engine.intr_np,
+            # landmarks re-indexed compactly for the rig problem
+            np.searchsorted(np.nonzero(res.point_valid)[0], engine.obs_track[keep]),
+            engine.obs_view[keep],
+            engine.view_intrinsic[engine.obs_view[keep]],
+            engine.obs_uv[keep],
+            rounds=self.rounds,
+            device=engine.device,
+        )
+        posed = res.posed
+        res.pose_R[posed] = R_v[posed]
+        res.pose_c[posed] = c_v[posed]
+        res.points[res.point_valid] = pts[: int(res.point_valid.sum())]
+        res.history.append(("rig_postprocess", self.n_sub))
+        return sub_R, sub_t
 
 
 class ExpansionChunk:

@@ -105,3 +105,41 @@ def normalized_obs(scene: SyntheticScene) -> torch.Tensor:
     """Observations lifted to the (undistorted) normalized camera plane."""
     p = cam.ima2cam(scene.intrinsics, scene.observations)
     return cam.remove_distortion(scene.intrinsics.disto_kind, scene.intrinsics.disto, p)
+
+
+def ring_scene_sfmdata(
+    n_views: int = 10,
+    n_points: int = 100,
+    image_size=(1920, 1080),
+    focal_px: float = 1200.0,
+    noise_px: float = 0.0,
+    seed: int = 0,
+    points=None,
+    noise=None,
+    device="cuda",
+):
+    """Synthetic ring scene as a full SfMData, the generateSampleScene
+    fixture (ref: sfmDataIO/sceneSample.hpp:18 generateSampleScene).
+    `points` and `noise` replace the generator's draws as in `ring_scene`."""
+    import numpy as np
+
+    from ..sfmdata.scene import SfMData
+
+    syn = ring_scene(
+        n_views=n_views, n_points=n_points, image_size=image_size, focal_px=focal_px,
+        noise_px=noise_px, seed=seed, points=points, noise=noise, device=device,
+    )
+    sc = SfMData.empty()
+    w, h = image_size
+    ii = sc.add_intrinsic(1000, w, h, focal_px)
+    R = geo.quat_to_mat(syn.poses.q).cpu().numpy().astype(np.float64)
+    c = syn.poses.c.cpu().numpy().astype(np.float64)
+    for v in range(n_views):
+        vi = sc.add_view(100 + v, ii, w, h, path=f"view_{v:04d}.jpg", frame_id=v)
+        sc.set_pose(vi, R[v], c[v])
+    vis = syn.visible.cpu().numpy()
+    obs = syn.observations.cpu().numpy()
+    vv, ll = np.nonzero(vis)
+    sc.set_structure(syn.points.cpu().numpy().astype(np.float64), ll.astype(np.int32), vv.astype(np.int32),
+                     obs[vv, ll])
+    return sc

@@ -3,7 +3,8 @@
 its SfM front end, its whole main path (images to point cloud), its
 surface mesher, Meshroom's chain through its CLI (images to textured mesh,
 one process a stage), the HDR panorama chain and global SfM, the hard scene
-(images to poses) and its bundle adjuster once on one GPU.
+(images to poses), camera and rig localization against it, and its bundle
+adjuster once on one GPU.
 
     python3 chip_smoke.py
 
@@ -117,17 +118,34 @@ toolkit (`nvcc`). It
    voctree pairs, matching and incrementalSfm (at least 39 of 40 posed,
    ATE < 1.2 % of the radius), with stage seconds, peak memory and the
    engine's seconds by step;
+10b. the `localization` phase (after step 10, on its reconstruction, with
+   feature ids recovered by position): 8 query views rendered on the card
+   midway between ring neighbours, and a second rig camera's (15 deg of
+   yaw, 0.25 to the side), through `cli.main`: cameraLocalization
+   (voctree and direct, at the CLI's defaults, at full resolution and on
+   the queries' 1024x768 windows, which the defaults do not decimate),
+   rigCalibration on posed rig scenes, rigTransform, sfmToRig,
+   rigLocalization (joint; average on the windows),
+   frustumFiltering on the 40-view truth (against the CPU's pairs), the
+   scene tools (split -> merge gives the scene back, sfmRegression of it
+   against itself, sfmTransfer, applyCalibration, sfmDistances,
+   generateSampleScene); resection_dlt6, EPnP, P4Pf and P5Pfr on 4096
+   samples of the hard scene's truth, timed, against the CPU on 512 of
+   them; a tag16h5 marker sequence through featureExtraction's marker
+   branch, localize_by_markers and refine_sequence. Gated by the JAX
+   chain's readings on the same inputs (LOC_GATES); no SGM launch;
 11. prints a `mesh_surface`, a `hard_scene`, a `dense_full`, a `front`, a
-   `pipeline`, a `ba`, a `cli`, a `panorama` and a `kernels` JSON line and,
-   last, `{"ok": true, "device": ...}`.
+   `pipeline`, a `ba`, a `cli`, a `panorama`, a `localization` and a
+   `kernels` JSON line and, last, `{"ok": true, "device": ...}`.
 
 Every failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA device; `make_posed_scene`, `run_main_path`, `run_front`,
 `front_report`, `run_pipeline`, `pipeline_report`, `run_mesh_surface`,
 `cli_chain`, `check_cli`, `make_panorama_inputs`, `run_panorama_chain`,
-`panorama_report`, `run_hard_scene_engine`, `run_hard_images`, the bench scenes and the BA
-problem builders also run on the CPU at small sizes (the port's tests call
-some of them so).
+`panorama_report`, `run_hard_scene_engine`, `run_hard_images`,
+`run_localization_phase`, the bench scenes and the BA problem builders
+also run on the CPU at small sizes (the port's tests call some of them
+so).
 """
 
 from __future__ import annotations
@@ -149,7 +167,7 @@ import torch
 
 from alicevision_tpu_torch import camera as cam
 from alicevision_tpu_torch import native, sfmdata
-from alicevision_tpu_torch.geometry import mat_to_quat, quat_to_mat
+from alicevision_tpu_torch.geometry import mat_to_quat, quat_to_mat, so3_exp
 from alicevision_tpu_torch.mvs import plane_sweep
 from alicevision_tpu_torch.mvs.plane_sweep import _axis_sweeps, _directional_pass
 from alicevision_tpu_torch.ops import build, sgm_kernel
@@ -2142,14 +2160,15 @@ def panorama_chain(work: str, focal_px: float) -> list:
     return steps
 
 
-def run_panorama_chain(main, work: str, inputs: dict, extra=(), device=None) -> dict:
-    """Each command of `panorama_chain` through `main` (a CLI's `main`),
-    timed to the end of its device work, with its device peak on a card.
-    Returns {name (#k for a repeated one): {"seconds", "device_peak_gib"}};
-    raises at the first command that fails."""
+def run_chain(main, chain: list, phase: str, extra=(), device=None, after=None) -> dict:
+    """Each (subcommand, argv) of `chain` through `main` (a CLI's `main`),
+    timed to the end of its device work, with its device peak on a card;
+    `after(name, row)` runs after each command. Returns {name (#k for a
+    repeated one): {"seconds", "device_peak_gib", ...}}; raises at the
+    first command that fails, naming `phase`."""
     on_card = device is not None and torch.device(device).type == "cuda"
     rows, seen = {}, {}
-    for name, argv in panorama_chain(work, inputs["focal_px"]):
+    for name, argv in chain:
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
@@ -2157,12 +2176,19 @@ def run_panorama_chain(main, work: str, inputs: dict, extra=(), device=None) -> 
         if on_card:
             torch.cuda.synchronize(device)
         if rc != 0:
-            raise RuntimeError(f"panorama: `{name} {' '.join(argv)}` exited {rc}")
+            raise RuntimeError(f"{phase}: `{name} {' '.join(argv)}` exited {rc}")
         k = seen[name] = seen.get(name, 0) + 1
-        rows[name if k == 1 else f"{name}#{k}"] = {
+        row = rows[name if k == 1 else f"{name}#{k}"] = {
             "seconds": time.perf_counter() - t0,
             "device_peak_gib": torch.cuda.max_memory_allocated(device) / 2**30 if on_card else None}
+        if after is not None:
+            after(name, row)
     return rows
+
+
+def run_panorama_chain(main, work: str, inputs: dict, extra=(), device=None) -> dict:
+    """`run_chain` of `panorama_chain`."""
+    return run_chain(main, panorama_chain(work, inputs["focal_px"]), "panorama", extra, device)
 
 
 def _gt_on_canvas(gt: np.ndarray, width: int) -> np.ndarray:
@@ -2437,6 +2463,720 @@ def check_panorama(dev, work: str, cli_out: str, posed_sfm: str, smi: str) -> tu
     return row, launches
 
 
+# ------------------------------------------------------------------ localization
+
+# The localization phase (after hard_scene, on the images path's
+# reconstruction `hard_sfm.sfm` and its DSP-SIFT features): 8 query views
+# rendered midway between ring neighbours of the same distorted box world,
+# cameraLocalization (voctree and direct: at the CLI's defaults, at full
+# resolution, and at the defaults on the queries' 1024x768 windows), a
+# two-camera rig (camera 1 at a fixed sub-pose) through rigCalibration ->
+# rigTransform / sfmToRig -> rigLocalization (joint fusion on the full
+# queries, average fusion on the windows),
+# the remaining resection solvers on the card against the CPU, frustum
+# pairs, the scene tools' round trip and a tag16h5 marker sequence through
+# featureExtraction, localize_by_markers and refine_sequence. Every command
+# runs in this process through `cli.main`. Its gates are the JAX chain's
+# readings on the same inputs (scripts/localization_reference.py, on the
+# CPU) with a margin; it launches no SGM kernel.
+LOC_QUERIES = 8
+LOC_SUB_YAW_DEG, LOC_SUB_SIDE = 15.0, 0.25  # camera 1: yaw about camera 0's y axis, offset along its x axis
+LOC_RIG_NOISE = 1e-3  # rad and units: the posed rig scenes' noise around the truth
+LOC_SOLVER_BATCH, LOC_SOLVER_CPU = 4096, 512  # samples a solver call, and the CPU's share of them
+LOC_SOLVER_F = (450.0, 1800.0)  # the focal sweeps' range around the hard scene's 900 px
+LOC_SOLVER_K1 = -0.15  # P5Pfr's division-model distortion of its samples
+# queries of at most the CLI's --downscaleTo 1024 are not decimated: the
+# top-left 1024x768 of each render keeps the database camera's pixel frame
+LOC_CROP = (1024, 768)
+LOC_FRUSTUM_Z = (1.0, 4.5)  # frusta reaching 1.5 units short of the ring's centre: opposite views miss
+LOC_MARKER = dict(frames=6, wh=(640, 480), focal_px=600.0, focal0=1.05, tags=9)
+# The JAX chain on a card reconstruction saved by
+# scripts/localization_phase_torch.py (scripts/localization_reference.py,
+# on the CPU), queries right of 8 with the CLI's draw: at the defaults 1
+# (voctree) and 0 (direct), since a halved query's SIFT is at half the scale
+# of the database's full-resolution DSP-SIFT; at full resolution 3 and 7;
+# on the 1024x768 windows at the defaults 2 and 7. Rig frames: 8 (joint)
+# and 8 (average, on the windows). Errors up to 0.37 deg and 0.49 % of
+# the radius a query, 0.45 deg and 1.24 % a rig frame (the calibrated
+# sub-pose meets the reconstruction's own 2.8 deg tilt); none wrong. The
+# sub-pose is off by 0.055 deg and 3.5e-4. P4Pf and P5Pfr recover the
+# focal on 99.54 % and 99.85 % of the samples. Each count gate takes one
+# query of margin: every chip run localizes against a new reconstruction,
+# with its own tree and RANSAC draws. The reference's own draws at the
+# voctree defaults read 0 or 1 (`--keys 8`: 1 on 3 of 8 draws). The
+# natural 8 of 8 is missed by the reference and not gated. No wrong
+# success is allowed. The reference's wrong successes come from the fault
+# that `localizer.resect_padded` repairs (ROADMAP §3); the port's voctree
+# runs met 42 of them in 32 draws on the card before the repair and none
+# after.
+LOC_GATES = dict(
+    localized={"voctree": 0, "direct": 0, "voctree_full": 2, "direct_full": 6, "voctree_crop": 1,
+               "direct_crop": 6},  # right, of LOC_QUERIES
+    rot_deg=0.5, centre_frac=0.01,  # a query localized right: centre error over the ring's radius
+    wrong=0,  # successes that miss the place (wrong_rot_deg or wrong_centre_frac off), of a run
+    wrong_rot_deg=5.0, wrong_centre_frac=0.05,
+    rig_frames={"joint": 7, "average": 7}, rig_rot_deg=1.0, rig_centre_frac=0.02,
+    subpose_rot_deg=0.2, subpose_centre=0.01,
+    solver_recovered=0.98, solver_agree=0.98, linear_rot_deg=0.01,
+    marker_focal=0.01, marker_rms_px=0.5,
+)
+
+
+# the phase's cameraLocalization runs, in its chain's order
+LOC_CAMERA_RUNS = ("voctree", "direct", "voctree_full", "direct_full", "voctree_crop", "direct_crop")
+
+
+def localization_camera_runs(inputs: dict) -> dict:
+    """LOC_CAMERA_RUNS -> (--method, query folder, --downscaleTo or None
+    for the CLI's default 1024): camera 0's renders at the defaults and at
+    full resolution (the defaults halve a 1280-px query: SIFT of half the
+    scale against the database's full-resolution DSP-SIFT, as
+    rigLocalization's joint path does not), and their windows at the
+    defaults."""
+    q0, c0 = inputs["folders"][0], inputs["crops"][0]
+    runs = {}
+    for method in ("voctree", "direct"):
+        runs[method] = (method, q0, None)
+        runs[f"{method}_full"] = (method, q0, 0)
+        runs[f"{method}_crop"] = (method, c0, None)
+    return {name: runs[name] for name in LOC_CAMERA_RUNS}
+
+
+def _look_at_rows(c: np.ndarray) -> np.ndarray:
+    """World->camera rotations (rows right, down, forward) of cameras at
+    centres c (N, 3) looking at the origin, z up (the hard ring's)."""
+    fwd = -c / np.linalg.norm(c, axis=-1, keepdims=True)
+    right = np.cross(fwd, np.broadcast_to([0.0, 0.0, 1.0], fwd.shape))
+    right /= np.linalg.norm(right, axis=-1, keepdims=True)
+    return np.stack([right, np.cross(fwd, right), fwd], axis=-2)
+
+
+def localization_poses(n_queries: int = LOC_QUERIES, n_views: int = HARD_VIEWS, radius: float = 6.0) -> dict:
+    """Query poses midway (in angle) between ring neighbours i, i+1 with i
+    spread over the ring, on its height curve, looking at the origin:
+    camera 0's (R0, c0) and the rig's camera 1 (R1 = R_s R0, c1 = c0 +
+    R0ᵀ c_rel) with the sub-pose (R_s, c_rel) of LOC_SUB_*."""
+    from alicevision_tpu_torch.utils.rendered import _ring_cameras
+
+    _, _, c_ring = _ring_cameras(n_views, radius, 1.2, HARD_IMG["focal_px"], HARD_IMG["wh"], 0)
+    ang = np.unwrap(np.arctan2(c_ring[:, 1], c_ring[:, 0]))
+    ang = np.append(ang, ang[0] + 2 * np.pi)
+    i = (np.arange(n_queries) * n_views) // n_queries
+    a = 0.5 * (ang[i] + ang[i + 1])
+    c0 = np.stack([radius * np.cos(a), radius * np.sin(a), 1.2 * np.sin(2.1 * a)], axis=-1)
+    R0 = _look_at_rows(c0)
+    y = math.radians(LOC_SUB_YAW_DEG)
+    R_s = np.array([[math.cos(y), 0.0, -math.sin(y)], [0.0, 1.0, 0.0], [math.sin(y), 0.0, math.cos(y)]])
+    c_rel = np.array([LOC_SUB_SIDE, 0.0, 0.0])
+    return dict(R0=R0, c0=c0, R1=R_s @ R0, c1=c0 + np.einsum("qji,j->qi", R0, c_rel), sub_R=R_s, sub_c=c_rel)
+
+
+def render_at_poses(R: np.ndarray, c: np.ndarray, wh=HARD_IMG["wh"], focal_px: float = HARD_IMG["focal_px"],
+                    disto=(-0.25, 0.06, -0.005), device="cuda") -> np.ndarray:
+    """`render_hard_views`'s ray caster at given poses: the distorted box
+    world seen by cameras (R (N, 3, 3) world->cam, c (N, 3)), float64 on
+    `device`. Returns (N, H, W) float32 images."""
+    from alicevision_tpu_torch.utils.rendered import (
+        _noise_grid, _ray_box_t_torch, _texture_rich_torch, _undistort_radial_k3_torch, default_boxes)
+
+    w, h = wh
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float64, device=device),
+                            torch.arange(w, dtype=torch.float64, device=device), indexing="ij")
+    xd = torch.stack([(xs + 0.5 - w / 2.0) / focal_px, (ys + 0.5 - h / 2.0) / focal_px], dim=-1)
+    xn = _undistort_radial_k3_torch(xd, np.asarray(disto, np.float64)).reshape(-1, 2)
+    dirs_cam = torch.cat([xn, torch.ones_like(xn[:, :1])], dim=-1)
+    boxes = torch.as_tensor(default_boxes(), dtype=torch.float64, device=device)
+    grid = torch.as_tensor(_noise_grid(11), device=device)
+    out = []
+    for Rv, cv in zip(torch.as_tensor(R, dtype=torch.float64, device=device),
+                      torch.as_tensor(c, dtype=torch.float64, device=device)):
+        dirs = dirs_cam @ Rv
+        o = cv.expand_as(dirs)
+        t = _ray_box_t_torch(o, dirs, boxes).amin(dim=-1)
+        hit = torch.isfinite(t)
+        tex = _texture_rich_torch(o + torch.where(hit, t, torch.zeros_like(t))[:, None] * dirs, grid)
+        out.append(torch.where(hit, tex, torch.full_like(tex, 0.5)).reshape(h, w).to(torch.float32))
+    return torch.stack(out).cpu().numpy()
+
+
+def _posed_scene(path: str, R: np.ndarray, c: np.ndarray, wh, focal_px: float, id_base: int):
+    """A posed .sfm of N views (frame k = view k), one pinhole intrinsic."""
+    sc = sfmdata.SfMData.empty()
+    ii = sc.add_intrinsic(1, wh[0], wh[1], focal_px)
+    for k in range(len(R)):
+        v = sc.add_view(id_base + k, ii, wh[0], wh[1], path=f"q_{k:02d}.npy", frame_id=k)
+        sc.set_pose(v, R[k], c[k])
+    sfmdata.save(sc, path)
+
+
+def make_localization_inputs(work: str, device, n_queries: int = LOC_QUERIES, wh=HARD_IMG["wh"],
+                             focal_px: float = HARD_IMG["focal_px"], disto=(-0.25, 0.06, -0.005)) -> dict:
+    """The phase's queries and rig scenes in `work`: both rig cameras'
+    renders (loc_q0/, loc_q1/, q_<k>.npy) and their top-left LOC_CROP
+    windows (loc_c0/, loc_c1/), and each camera's posed .sfm from the truth
+    with LOC_RIG_NOISE (seeded), frames = queries."""
+    poses = localization_poses(n_queries)
+    rng = np.random.RandomState(5)
+    inputs = dict(poses=poses, wh=tuple(wh), focal_px=focal_px, folders=[], crops=[], rig_sfm=[])
+    t0 = time.perf_counter()
+    for k in (0, 1):
+        R, c = poses[f"R{k}"], poses[f"c{k}"]
+        folder, crops = os.path.join(work, f"loc_q{k}"), os.path.join(work, f"loc_c{k}")
+        os.makedirs(folder, exist_ok=True)
+        os.makedirs(crops, exist_ok=True)
+        for q, img in enumerate(render_at_poses(R, c, wh, focal_px, disto, device)):
+            np.save(os.path.join(folder, f"q_{q:02d}.npy"), img)
+            np.save(os.path.join(crops, f"q_{q:02d}.npy"), np.ascontiguousarray(img[:LOC_CROP[1], :LOC_CROP[0]]))
+        inputs["crops"].append(crops)
+        dR = so3_exp(torch.as_tensor(rng.normal(0, LOC_RIG_NOISE, (len(R), 3)))).numpy()
+        noisy_R = dR @ R
+        noisy_c = c + rng.normal(0, LOC_RIG_NOISE, c.shape)
+        path = os.path.join(work, f"loc_cam{k}.sfm")
+        _posed_scene(path, noisy_R, noisy_c, wh, focal_px, 100 * (k + 1))
+        inputs["folders"].append(folder)
+        inputs["rig_sfm"].append(path)
+    inputs["render_s"] = time.perf_counter() - t0
+    return inputs
+
+
+def localization_chain(work: str, inputs: dict, sfm: str, feats: str, truth_sfm: str) -> list:
+    """(subcommand, argv) of the phase, in order."""
+    def w(*p):
+        return os.path.join(work, *p)
+
+    q0, q1 = inputs["folders"]
+    c0, c1 = inputs["crops"]
+    zn, zf = LOC_FRUSTUM_Z
+    loc = ["--input", sfm, "--features", feats]
+    camera = [("cameraLocalization", [*loc, "--queryFolder", folder, "--output", w(f"loc_{name}.json"), "--method",
+                                      method, *([] if ds is None else ["--downscaleTo", str(ds)])])
+              for name, (method, folder, ds) in localization_camera_runs(inputs).items()]
+    return [
+        *camera,
+        ("rigCalibration", ["--inputs", ",".join(inputs["rig_sfm"]), "--output", w("rig.json")]),
+        ("rigTransform", ["--input", inputs["rig_sfm"][0], "--rig", w("rig.json"), "--camera", "1",
+                          "--output", w("cam1_from_rig.sfm")]),
+        ("sfmToRig", ["--input", inputs["rig_sfm"][0], "--output", w("sfm_rig.json")]),
+        ("rigLocalization", [*loc, "--queryFolders", f"{q0},{q1}", "--rig", w("rig.json"),
+                             "--output", w("rig_joint.json"), "--fusion", "joint"]),
+        # average fusion localizes each camera at the defaults: the windows
+        ("rigLocalization", [*loc, "--queryFolders", f"{c0},{c1}", "--rig", w("rig.json"),
+                             "--output", w("rig_average.json"), "--fusion", "average"]),
+        ("frustumFiltering", ["--input", truth_sfm, "--output", w("frustum_pairs.txt"), "--zNear", str(zn),
+                              "--zFar", str(zf)]),
+        ("sfmSplitReconstructed", ["--input", sfm, "--output", w("rec.sfm"),
+                                   "--outputNonReconstructed", w("non.sfm")]),
+        ("sfmMerge", ["--input", w("rec.sfm"), "--input2", w("non.sfm"), "--output", w("merged.sfm")]),
+        ("sfmRegression", ["--input", sfm, "--reference", sfm]),
+        ("sfmTransfer", ["--input", truth_sfm, "--reference", sfm, "--output", w("transferred.sfm")]),
+        ("applyCalibration", ["--input", truth_sfm, "--calibration", sfm, "--output", w("calibrated.sfm")]),
+        ("sfmDistances", ["--input", sfm]),
+        ("generateSampleScene", ["--output", w("sample.sfm")]),
+    ]
+
+
+LOC_STEP_LOG = "[av] cameraLocalization seconds by step: "
+
+
+def run_localization_chain(main, chain: list, extra=(), device=None) -> dict:
+    """`run_chain` of `chain` with each command's printed JSON kept ("out":
+    the last one-line object, or one printed with indents) and the seconds
+    by step that the port's cameraLocalization logs to stderr
+    ("step_seconds", None from a CLI that logs none)."""
+    import contextlib
+    import io
+
+    printed = {}
+
+    def quiet(argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+        printed["text"], printed["err"] = out.getvalue().strip(), err.getvalue()
+        if rc:
+            sys.stderr.write(printed["err"])
+        return rc
+
+    def after(name, row):
+        text = printed["text"]
+        last = text.splitlines()[-1] if text else ""
+        row["out"] = json.loads(last) if last.startswith("{") else json.loads(text[text.find("{"):]) if text else None
+        steps = [ln[len(LOC_STEP_LOG):] for ln in printed["err"].splitlines() if ln.startswith(LOC_STEP_LOG)]
+        row["step_seconds"] = json.loads(steps[-1]) if steps else None
+
+    return run_chain(quiet, chain, "localization", extra, device, after)
+
+
+def with_feature_ids(sfm: str, feats: str, out: str) -> int:
+    """Write `sfm` to `out` with each observation's feature id. The SfM
+    engines of both packages export observations numbered 0..O-1, not by
+    feature (ROADMAP §3), and the localizers look descriptors up by feature
+    id; an observation's pixel is its feature's, bit for bit, so the id is
+    recovered by position (the first of features at one position, which
+    differ in orientation only). Returns the observations left unmatched."""
+    sc = sfmdata.load(sfm)
+    fid = np.full(sc.n_observations, -1, np.int64)
+    for v in np.unique(sc.obs_view):
+        xy = stages.load_features(feats, int(sc.view_ids[v]))["xy"].astype(np.float64)
+        first = {}
+        for i, p in enumerate(map(tuple, xy)):
+            first.setdefault(p, i)
+        sel = np.nonzero(sc.obs_view == v)[0]
+        fid[sel] = [first.get(tuple(p), -1) for p in sc.obs_uv[sel]]
+    missing = int((fid < 0).sum())
+    sc.obs_feature = np.maximum(fid, 0)
+    sfmdata.save(sc, out)
+    return missing
+
+
+def _truth_scene(sfm: str, out: str, R_gt: np.ndarray, c_gt: np.ndarray) -> None:
+    """The reconstruction's scene with every view posed at the truth (view
+    v is image v of the ring); only the poses are used."""
+    sc = sfmdata.load(sfm)
+    for v in range(sc.n_views):
+        sc.set_pose(v, R_gt[v], c_gt[v])
+    sfmdata.save(sc, out)
+
+
+def _database_frame(sc, R_gt, c_gt) -> tuple:
+    """The reconstruction's frame against the truth's: the similarity (s,
+    Ra, t) of its centres, and the camera-side rotation C that its views
+    share, the chordal mean of R_v Raᵀ R_trueᵀ (a principal point the
+    engine misplaces comes out as a common tilt of every camera)."""
+    posed = sc.valid_views()
+    est_c = np.stack([sc.pose_c[sc.view_pose[v]] for v in posed])
+    s, Ra, t = _align_similarity(est_c, c_gt[posed])
+    M = sum(sc.pose_R[sc.view_pose[v]] @ Ra.T @ R_gt[v].T for v in posed)
+    U, _, Vt = np.linalg.svd(M)
+    C = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+    return (s, Ra, t), C
+
+
+def _pose_errors(results: dict, names, R_true, c_true, align, C, radius: float) -> dict:
+    """Rotation (deg) and centre (fraction of the radius) errors of JSON
+    poses in the reconstruction's frame, mapped by the similarity `align`
+    (s, Ra, t) into the truth's, the rotations less the reconstruction's
+    common camera tilt C."""
+    s, Ra, t = align
+    rot, cen, ok = [], [], 0
+    for q, name in enumerate(names):
+        r = results.get(name, {})
+        if not r.get("success"):
+            rot.append(None)
+            cen.append(None)
+            continue
+        ok += 1
+        rot.append(_angle_deg(C.T @ np.asarray(r["R"]) @ Ra.T @ R_true[q].T))
+        cen.append(float(np.linalg.norm(s * Ra @ np.asarray(r["c"]) + t - c_true[q]) / radius))
+    return {"localized": ok, "rot_err_deg": rot, "centre_err_frac": cen}
+
+
+def localization_report(work: str, rows: dict, inputs: dict, sfm: str, truth_sfm: str, R_gt, c_gt, device) -> dict:
+    """The chain's outputs against the truth."""
+    from alicevision_tpu_torch.sfm.frustum import frustum_pairs
+
+    poses = inputs["poses"]
+    sc = sfmdata.load(sfm)
+    align, C = _database_frame(sc, R_gt, c_gt)
+    radius = float(np.linalg.norm(c_gt - c_gt.mean(0), axis=1).mean())
+    names = [f"q_{q:02d}.npy" for q in range(len(poses["R0"]))]
+    rep = {"align_scale": float(align[0]), "database_tilt_deg": _angle_deg(C),
+           "database_pp_offset_px": sc.offset[0].tolist()}
+
+    def load(name):
+        with open(os.path.join(work, name)) as f:
+            return json.load(f)
+
+    for key in LOC_CAMERA_RUNS:
+        rep[f"camera_{key}"] = _pose_errors(load(f"loc_{key}.json"), names, poses["R0"], poses["c0"], align, C,
+                                            radius)
+    for fusion in ("joint", "average"):
+        rep[f"rig_{fusion}"] = _pose_errors(load(f"rig_{fusion}.json"), names, poses["R0"], poses["c0"], align, C,
+                                            radius)
+    sub = load("rig.json")["subposes"][1]
+    rep["subpose_rot_err_deg"] = _angle_deg(np.asarray(sub["R"]) @ poses["sub_R"].T)
+    rep["subpose_centre_err"] = float(np.linalg.norm(np.asarray(sub["c"]) - poses["sub_c"]))
+    moved = sfmdata.load(os.path.join(work, "cam1_from_rig.sfm"))
+    rep["rig_transform_max_centre_err"] = float(max(
+        np.linalg.norm(moved.pose_c[moved.view_pose[v]] - poses["c1"][v]) for v in range(moved.n_views)))
+    rep["sfm_to_rig_cameras"] = rows["sfmToRig"]["out"]["cameras"]
+
+    with open(os.path.join(work, "frustum_pairs.txt")) as f:
+        cli_pairs = np.array([[int(x) for x in line.split()] for line in f if line.strip()], np.int64)
+    truth = sfmdata.load(truth_sfm)
+    cpu_pairs = frustum_pairs(truth, *LOC_FRUSTUM_Z, device="cpu")
+    card_pairs = frustum_pairs(truth, *LOC_FRUSTUM_Z, device=device)
+    n_posed = len(truth.valid_views())
+    rep["frustum"] = {"pairs": int(len(cli_pairs)), "of": n_posed * (n_posed - 1) // 2,
+                      "cli_equals_cpu": bool(np.array_equal(cli_pairs.reshape(-1, 2), cpu_pairs)),
+                      "card_equals_cpu": bool(np.array_equal(card_pairs, cpu_pairs))}
+
+    merged = sfmdata.load(os.path.join(work, "merged.sfm"))
+    by_id = {int(merged.view_ids[v]): v for v in range(merged.n_views)}
+    same_poses = all(
+        (sc.view_pose[v] < 0) == (merged.view_pose[by_id[int(i)]] < 0)
+        and (sc.view_pose[v] < 0 or (np.array_equal(sc.pose_R[sc.view_pose[v]],
+                                                    merged.pose_R[merged.view_pose[by_id[int(i)]]])
+                                     and np.array_equal(sc.pose_c[sc.view_pose[v]],
+                                                        merged.pose_c[merged.view_pose[by_id[int(i)]]])))
+        for v, i in enumerate(sc.view_ids))
+    rep["split_merge"] = {"views": [int(sc.n_views), int(merged.n_views)],
+                          "landmarks": [int(sc.n_landmarks), int(merged.n_landmarks)],
+                          "observations": [int(sc.n_observations), int(merged.n_observations)],
+                          "same_ids": set(by_id) == {int(i) for i in sc.view_ids}, "same_poses": bool(same_poses)}
+    reg = rows["sfmRegression"]["out"]
+    rep["regression_self"] = {k: reg[k] for k in ("common_poses", "rotation_deg_max", "center_dist_max")}
+    rep["transfer"] = rows["sfmTransfer"]["out"]
+    rep["apply_calibration"] = rows["applyCalibration"]["out"]
+    rep["distances"] = rows["sfmDistances"]["out"]
+    rep["sample_scene"] = rows["generateSampleScene"]["out"]
+    return rep
+
+
+def solver_samples(n: int, seed: int = 0) -> dict:
+    """n 6-point samples of the hard scene's truth: a random view and 6 of
+    the points it sees. Returns world (n, 6, 3), normalized undistorted
+    observations (n, 6, 2), centred pixels (n, 6, 2), the same divided by
+    the division model at LOC_SOLVER_K1 (n, 6, 2), and the views' (R, t)."""
+    from alicevision_tpu_torch.utils.rendered import hard_scene
+
+    hs = hard_scene(HARD_VIEWS, HARD_POINTS)
+    rng = np.random.RandomState(seed)
+    f = float(hs.K[0, 0])
+    world, xn, Rs, ts = [], [], [], []
+    while len(world) < n:
+        v = rng.randint(HARD_VIEWS)
+        vis = np.nonzero(hs.visible[v])[0]
+        pick = rng.choice(vis, 6, replace=False)
+        X = hs.points[pick]
+        xc = (X - hs.c[v]) @ hs.R[v].T
+        world.append(X)
+        xn.append(xc[:, :2] / xc[:, 2:])
+        Rs.append(hs.R[v])
+        ts.append(-hs.R[v] @ hs.c[v])
+    world, xn = np.stack(world), np.stack(xn)
+    # x_d with x_u = x_d / (1 + k |x_d|^2), radially
+    r_u = np.linalg.norm(xn, axis=-1, keepdims=True)
+    k = LOC_SOLVER_K1
+    r_d = (1.0 - np.sqrt(1.0 - 4.0 * k * r_u**2)) / (2.0 * k * np.maximum(r_u, 1e-12))
+    return dict(world=world.astype(np.float32), xn=xn.astype(np.float32), px=(xn * f).astype(np.float32),
+                px_k1=(xn * (r_d / np.maximum(r_u, 1e-12)) * f).astype(np.float32), focal=f,
+                R=np.stack(Rs), t=np.stack(ts))
+
+
+def _solver_calls(smp: dict, device, n: int) -> dict:
+    """name -> a call of the solver on the first n samples on `device`."""
+    from alicevision_tpu_torch import multiview as mv
+
+    def t(a):
+        return torch.as_tensor(a[:n], device=device)
+
+    lo, hi = LOC_SOLVER_F
+    return {
+        "resection_dlt6": lambda: mv.resection_dlt6(t(smp["world"]), t(smp["xn"])),
+        "epnp": lambda: mv.epnp(t(smp["world"]), t(smp["xn"])),
+        "p4pf": lambda: mv.p4pf(t(smp["world"][:, :4]), t(smp["px"][:, :4]), lo, hi),
+        "p5pfr": lambda: mv.p5pfr(t(smp["world"][:, :5]), t(smp["px_k1"][:, :5]), lo, hi),
+    }
+
+
+def _recovered_focal(out, focal: float, k1=None) -> np.ndarray:
+    """Per sample, the focal of the valid candidate nearest the truth among
+    those within 1 % of it (and within 0.01 of k1), else NaN."""
+    f, ok = out[2].cpu().numpy(), out[-1].cpu().numpy()
+    near = ok & (np.abs(f - focal) < 0.01 * focal)
+    if k1 is not None:
+        near &= np.abs(out[3].cpu().numpy() - k1) < 0.01
+    d = np.where(near, np.abs(f - focal), np.inf)
+    best = np.argmin(d, axis=-1)
+    return np.where(near.any(-1), np.take_along_axis(f, best[:, None], -1)[:, 0], np.nan)
+
+
+def check_solvers(device, n: int = LOC_SOLVER_BATCH, n_cpu: int = LOC_SOLVER_CPU) -> dict:
+    """The four solvers on n samples on `device` (timed, best of 3) and on
+    the first n_cpu on the CPU: the linear ones' rotation error to the truth
+    and the card's largest distance to the CPU's R where the CPU's solve is
+    right; the focal solvers' share of samples with the focal recovered,
+    and the share of the CPU's samples where the card recovers the same
+    focal (rtol 1e-3)."""
+    smp = solver_samples(n)
+    card, cpu = _solver_calls(smp, device, n), _solver_calls(smp, "cpu", n_cpu)
+    rows = {}
+    for name, call in card.items():
+        times = []
+        for _ in range(3):
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = call()
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        ref = cpu[name]()
+        row = {"samples": n, "ms": min(times), "cpu_samples": n_cpu,
+               "cpu_ms": (time.perf_counter() - t0) * 1e3}
+        if name in ("resection_dlt6", "epnp"):
+            R, R_cpu = out[0].cpu().numpy(), ref[0].numpy()
+            row["valid"] = float(out[2].cpu().numpy().mean())
+            row["rot_err_deg_median"] = float(np.median([_angle_deg(a @ b.T) for a, b in zip(R, smp["R"])]))
+            # held together where the CPU's solve is within 0.1 deg of the
+            # truth: a near-planar sample (DLT) or control points on a flat
+            # spread (EPnP) gives each device its own arbitrary solve
+            good = np.array([_angle_deg(a @ b.T) < 0.1 for a, b in zip(R_cpu, smp["R"][:n_cpu])])
+            diff = np.abs(R[:n_cpu] - R_cpu).reshape(n_cpu, -1).max(-1)[good]
+            row["cpu_well_conditioned"] = float(good.mean())
+            row["card_cpu_R_diff_median"] = float(np.median(diff)) if len(diff) else 0.0
+            row["card_cpu_agree"] = float((diff < 1e-3).mean()) if len(diff) else 1.0
+        else:
+            k1 = LOC_SOLVER_K1 if name == "p5pfr" else None
+            f_card = _recovered_focal(out, smp["focal"], k1)
+            f_cpu = _recovered_focal(ref, smp["focal"], k1)
+            row["recovered"] = float(np.isfinite(f_card).mean())
+            row["recovered_cpu"] = float(np.isfinite(f_cpu).mean())
+            same = (np.isnan(f_card[:n_cpu]) & np.isnan(f_cpu)) | (np.abs(f_card[:n_cpu] - f_cpu) < 1e-3 * smp["focal"])
+            row["card_cpu_agree"] = float(same.mean())
+        rows[name] = row
+    return rows
+
+
+def render_marker_frames(n_frames: int, wh, focal_px: float, n_tags: int = 9, tag_px: int = 96):
+    """A tag16h5 board (ids 0..n_tags-1 on a 3-column grid of 0.3-unit tags
+    0.45 apart, in the plane z = 0, centred at the origin) seen by n_frames
+    pinhole cameras on an arc 2.6 units in front of it, up to 29 deg to the
+    side and 15 deg up or down (a plane's focal needs the tilt). Returns (images
+    (F, H, W) float32, R (F, 3, 3), c (F, 3), {id: tag centre (3,)})."""
+    from scipy import ndimage
+
+    from alicevision_tpu_torch.features.markers import render_apriltag
+
+    side, pitch, cols = 0.3, 0.45, 3
+    rows_ = (n_tags + cols - 1) // cols
+    ppu = tag_px / side  # board pixels a unit
+    W_b = int(round((cols * pitch + 0.3) * ppu))
+    H_b = int(round((rows_ * pitch + 0.3) * ppu))
+    board = np.ones((H_b, W_b), np.float32)
+    centres = {}
+    for m in range(n_tags):
+        r, cidx = divmod(m, cols)
+        x = (cidx - (cols - 1) / 2) * pitch
+        y = (r - (rows_ - 1) / 2) * pitch
+        centres[m] = np.array([x, y, 0.0])
+        u0 = int(round((x - side / 2) * ppu + W_b / 2))
+        v0 = int(round((y - side / 2) * ppu + H_b / 2))
+        board[v0:v0 + tag_px, u0:u0 + tag_px] = render_apriltag(m, tag_px)
+    w, h = wh
+    ang = np.linspace(-0.5, 0.5, n_frames)
+    c = np.stack([2.6 * np.sin(ang), 0.7 * np.sin(3 * ang + 0.5), -2.6 * np.cos(ang)], axis=-1)
+    fwd = -c / np.linalg.norm(c, axis=-1, keepdims=True)
+    right = np.cross(np.broadcast_to([0.0, -1.0, 0.0], fwd.shape), fwd)
+    right /= np.linalg.norm(right, axis=-1, keepdims=True)
+    R = np.stack([right, np.cross(fwd, right), fwd], axis=-2)
+    ys, xs = np.mgrid[0:h, 0:w]
+    rays = np.stack([(xs + 0.5 - w / 2) / focal_px, (ys + 0.5 - h / 2) / focal_px, np.ones_like(xs, float)], -1)
+    imgs = []
+    for Rf, cf in zip(R, c):
+        d = rays @ Rf  # world directions
+        s = -cf[2] / d[..., 2]
+        p = cf + s[..., None] * d
+        u = p[..., 0] * ppu + W_b / 2 - 0.5
+        v = p[..., 1] * ppu + H_b / 2 - 0.5
+        imgs.append(ndimage.map_coordinates(board, [v, u], order=1, cval=1.0).astype(np.float32))
+    return np.stack(imgs), R, c, centres
+
+
+def check_marker_sequence(work: str, device, frames: int = LOC_MARKER["frames"], wh=LOC_MARKER["wh"],
+                          focal_px: float = LOC_MARKER["focal_px"]) -> dict:
+    """The marker path: rendered tag16h5 frames -> cameraInit ->
+    featureExtraction's tag16h5 branch -> localize_by_markers each frame at
+    a focal LOC_MARKER["focal0"] off -> refine_sequence (poses + shared
+    focal, the tag centres fixed)."""
+    from alicevision_tpu_torch.features.markers import MarkerDetection
+    from alicevision_tpu_torch.localization import localize_by_markers, refine_sequence
+
+    imgs, R_gt, c_gt, centres = render_marker_frames(frames, wh, focal_px, LOC_MARKER["tags"])
+    folder = os.path.join(work, "marker_images")
+    os.makedirs(folder, exist_ok=True)
+    for k, img in enumerate(imgs):
+        np.save(os.path.join(folder, f"m_{k:02d}.npy"), img)
+    t0 = time.perf_counter()
+    scene = os.path.join(work, "marker_init.sfm")
+    stages.camera_init(folder, scene, default_focal_px=focal_px, device=device)
+    feats = os.path.join(work, "marker_features")
+    stages.feature_extraction(scene, feats, downscale_to=0, describer_types="tag16h5", device=device)
+    sc = sfmdata.load(scene)
+    f0 = focal_px * LOC_MARKER["focal0"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    Rs, ts, world, uv, detected = [], [], [], [], []
+    for v in range(sc.n_views):
+        with np.load(os.path.join(feats, f"{int(sc.view_ids[v])}.tag16h5.npz")) as z:
+            ids, xy = z["ids"], z["xy"]
+        detected.append(int(len(ids)))
+        dets = [MarkerDetection(int(i), p, None, 1.0) for i, p in zip(ids, xy)]
+        res = localize_by_markers(gen, dets, centres, f0, (float(wh[0]), float(wh[1])), device=device)
+        if not res.success:
+            raise RuntimeError(f"marker frame {v}: not localized ({len(ids)} tags)")
+        Rs.append(res.R)
+        ts.append(-res.R @ res.c)
+        world.append(np.stack([centres[int(i)] for i in ids]))
+        uv.append(xy)
+    M = max(len(x) for x in world)
+    pad = lambda a, d: np.stack([np.pad(x, ((0, M - len(x)), (0, 0))) for x in a])  # noqa: E731
+    mask = np.stack([np.arange(M) < len(x) for x in world])
+    out = refine_sequence(np.stack(Rs), np.stack(ts), pad(world, 3), pad(uv, 2), mask, f0,
+                          (wh[0] / 2.0, wh[1] / 2.0), device=device)
+    c_est = -np.einsum("fji,fj->fi", out.R.cpu().numpy(), out.t.cpu().numpy())
+    # the frames' order is cameraInit's (file names sorted), the render's
+    return {"frames": frames, "tags_detected": detected, "focal0": f0, "focal": float(out.focal),
+            "focal_true": focal_px, "focal_err_frac": abs(float(out.focal) - focal_px) / focal_px,
+            "rms_px": float(out.rms_px),
+            "centre_err_max": float(np.linalg.norm(c_est - c_gt, axis=1).max()),
+            "seconds": time.perf_counter() - t0}
+
+
+def run_localization_phase(dev, work: str, sfm: str, feats: str, R_gt: np.ndarray, c_gt: np.ndarray,
+                           n_queries: int = LOC_QUERIES, wh=HARD_IMG["wh"], focal_px: float = HARD_IMG["focal_px"],
+                           disto=(-0.25, 0.06, -0.005), solver_batch: int = LOC_SOLVER_BATCH,
+                           solver_cpu: int = LOC_SOLVER_CPU, marker_frames: int = LOC_MARKER["frames"],
+                           smi: str = "") -> dict:
+    """The localization phase on the reconstruction `sfm` + `feats` of the
+    ring whose truth is (R_gt, c_gt) (view v = ring camera v): inputs, the
+    CLI chain in this process, the report, the solvers and the marker
+    sequence, with the SGM launches counted from 0. Returns the row."""
+    from alicevision_tpu_torch.pipeline.cli import main
+
+    cuda = torch.device(dev).type == "cuda"
+    sgm_kernel.launches.update(dict.fromkeys(sgm_kernel.launches, 0))
+    t_phase = time.perf_counter()
+    loc_work = os.path.join(work, "localization")
+    os.makedirs(loc_work, exist_ok=True)
+    inputs = make_localization_inputs(loc_work, dev, n_queries, wh, focal_px, disto)
+    db_sfm = os.path.join(loc_work, "database.sfm")
+    unmatched = with_feature_ids(sfm, feats, db_sfm)
+    if unmatched:
+        raise RuntimeError(f"localization: {unmatched} observations of {sfm} match no feature of {feats}")
+    sfm = db_sfm
+    truth_sfm = os.path.join(loc_work, "truth.sfm")
+    _truth_scene(sfm, truth_sfm, R_gt, c_gt)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    rows = run_localization_chain(main, localization_chain(loc_work, inputs, sfm, feats, truth_sfm),
+                                  extra=("--device", str(dev)), device=dev if cuda else None)
+    report = localization_report(loc_work, rows, inputs, sfm, truth_sfm, R_gt, c_gt, dev)
+    per_query = {}
+    for i, method in enumerate(LOC_CAMERA_RUNS):
+        row = rows["cameraLocalization" + (f"#{i + 1}" if i else "")]
+        per_query[method] = {step: v / n_queries for step, v in row["step_seconds"].items()}
+        per_query[method]["total"] = row["seconds"] / n_queries
+    solvers = check_solvers(dev, solver_batch, solver_cpu)
+    markers = check_marker_sequence(loc_work, dev, frames=marker_frames)
+    return {"card": smi, "queries": n_queries, "wh": list(wh), "render_s": inputs["render_s"],
+            "commands": {k: {"seconds": v["seconds"], "device_peak_gib": v["device_peak_gib"]}
+                         for k, v in rows.items()},
+            "seconds_per_query": per_query, "report": report, "solvers": solvers, "markers": markers,
+            "sgm_launches": dict(sgm_kernel.launches), "phase_s": time.perf_counter() - t_phase}
+
+
+def _pose_kind(a, c, rot: float, cen: float) -> str:
+    """A query's result from its errors (None: not localized): "right"
+    within rot deg and cen of the radius, "wrong" where the pose misses the
+    place (LOC_GATES' wrong_rot_deg or wrong_centre_frac off: a wrong pose
+    reported as a success), else "imprecise"."""
+    g = LOC_GATES
+    if a is None:
+        return "none"
+    if a < rot and c < cen:
+        return "right"
+    return "wrong" if a >= g["wrong_rot_deg"] or c >= g["wrong_centre_frac"] else "imprecise"
+
+
+def right_wrong(r: dict, rot: float, cen: float) -> tuple:
+    """(queries of `_pose_errors`' row r right, queries wrong), as
+    `_pose_kind` sorts them."""
+    kinds = [_pose_kind(a, c, rot, cen) for a, c in zip(r["rot_err_deg"], r["centre_err_frac"])]
+    return kinds.count("right"), kinds.count("wrong")
+
+
+def sweep_entry(results: dict, names: list, R_true, c_true, align, C, radius: float, seed: int) -> dict:
+    """One draw's reading of a camera run (results as cameraLocalization's
+    JSON) at the phase's query gates: the queries right, and each wrong or
+    imprecise success with its errors and inliers."""
+    pe = _pose_errors(results, names, R_true, c_true, align, C, radius)
+    g = LOC_GATES
+    out = {"seed": seed, "right": 0, "wrong": [], "imprecise": []}
+    for n, a, c in zip(names, pe["rot_err_deg"], pe["centre_err_frac"]):
+        kind = _pose_kind(a, c, g["rot_deg"], g["centre_frac"])
+        if kind == "right":
+            out["right"] += 1
+        elif kind != "none":
+            out[kind].append({"query": n, "rot_deg": a, "centre_frac": c, "n_inliers": results[n]["n_inliers"]})
+    return out
+
+
+def localization_misses(row: dict) -> list:
+    """The phase's gates (LOC_GATES) against its row."""
+    g, rep, bad = LOC_GATES, row["report"], []
+
+    for kind, wants, rot, cen in (("camera", g["localized"], g["rot_deg"], g["centre_frac"]),
+                                  ("rig", g["rig_frames"], g["rig_rot_deg"], g["rig_centre_frac"])):
+        for method, want in wants.items():
+            r = rep[f"{kind}_{method}"]
+            right, wrong = right_wrong(r, rot, cen)
+            if not (right >= want and wrong <= g["wrong"]):
+                bad.append(f"{kind} {method}: {right} of {row['queries']} within {rot} deg and {cen} of the radius, "
+                           f"{wrong} wrong ({r}), expected at least {want} and at most {g['wrong']} wrong")
+    if not (rep["subpose_rot_err_deg"] < g["subpose_rot_deg"] and rep["subpose_centre_err"] < g["subpose_centre"]):
+        bad.append(f"rigCalibration: sub-pose {rep['subpose_rot_err_deg']} deg, {rep['subpose_centre_err']}, "
+                   f"expected < {g['subpose_rot_deg']}, < {g['subpose_centre']}")
+    if not rep["rig_transform_max_centre_err"] < g["subpose_centre"] + 3 * LOC_RIG_NOISE:
+        bad.append(f"rigTransform: centres {rep['rig_transform_max_centre_err']} from camera 1's")
+    if rep["sfm_to_rig_cameras"] != row["queries"]:
+        bad.append(f"sfmToRig: {rep['sfm_to_rig_cameras']} cameras")
+    fr = rep["frustum"]
+    if not (fr["cli_equals_cpu"] and fr["card_equals_cpu"] and 0 < fr["pairs"] < fr["of"]):
+        bad.append(f"frustum pairs: {fr}")
+    sm = rep["split_merge"]
+    if not (sm["same_ids"] and sm["same_poses"] and len(set(sm["views"])) == 1 and len(set(sm["landmarks"])) == 1
+            and len(set(sm["observations"])) == 1):
+        bad.append(f"sfmSplitReconstructed -> sfmMerge: {sm}")
+    reg = rep["regression_self"]
+    # a scene against itself: no centre moves; the angle floors at the
+    # arccos of a trace just below 3 (the reference's readings, ~0.05 deg)
+    if not (reg["center_dist_max"] == 0.0 and reg["rotation_deg_max"] < 0.1):
+        bad.append(f"sfmRegression of a scene against itself: {reg}")
+    if not (rep["transfer"]["poses"] >= HARD_IMG_MIN_POSED and rep["apply_calibration"]["intrinsics_updated"] == 1
+            and rep["sample_scene"] == {"views": 10, "landmarks": 100}):
+        bad.append(f"scene tools: {rep['transfer']}, {rep['apply_calibration']}, {rep['sample_scene']}")
+    for name, s in row["solvers"].items():
+        if name in ("resection_dlt6", "epnp"):
+            if not s["rot_err_deg_median"] < g["linear_rot_deg"]:
+                bad.append(f"{name}: {s}")
+        elif not s["recovered"] >= g["solver_recovered"]:
+            bad.append(f"{name}: {s}")
+        if not s["card_cpu_agree"] >= g["solver_agree"]:
+            bad.append(f"{name}: the card against the CPU {s}")
+    m = row["markers"]
+    if not (m["focal_err_frac"] < g["marker_focal"] and m["rms_px"] < g["marker_rms_px"]):
+        bad.append(f"marker sequence: {m}")
+    if any(row["sgm_launches"].values()):
+        bad.append(f"the localization path launched SGM kernels: {row['sgm_launches']}")
+    return bad
+
+
+def check_localization(dev, work: str, smi: str) -> tuple:
+    """The localization phase on the hard_scene phase's reconstruction, and
+    its gates. Returns (the row, its SGM launches, all 0)."""
+    from alicevision_tpu_torch.utils.rendered import _ring_cameras
+
+    _, R_gt, c_gt = _ring_cameras(HARD_VIEWS, 6.0, 1.2, HARD_IMG["focal_px"], HARD_IMG["wh"], 0)
+    row = run_localization_phase(dev, work, os.path.join(work, "hard_sfm.sfm"), os.path.join(work, "hard_features"),
+                                 R_gt, c_gt, smi=smi)
+    bad = localization_misses(row)
+    if bad:
+        raise RuntimeError("localization: " + "; ".join(bad))
+    return row, row["sgm_launches"]
+
+
 def kernels_line(rows: list, agg_rows: list, launches: dict) -> dict:
     """The `kernels` entry of the SGM kernel, named after the entry the main
     path launches. Its numbers are one 640x480 D = 96 map's two
@@ -2593,6 +3333,10 @@ def main() -> int:
         # 8. the hard scene: the engine on 40 distorted views, and the images
         # path at the reference's operating point
         hard = check_hard_scene(dev, work, smi)
+
+        # 8b. camera and rig localization, the remaining resection solvers and
+        # the scene tools on the hard scene's reconstruction
+        loc_row, loc_launches = check_localization(dev, work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2608,8 +3352,9 @@ def main() -> int:
     print(json.dumps({"ba": ba_rows}), flush=True)
     print(json.dumps({"cli": cli_row}), flush=True)
     print(json.dumps({"panorama": pano_row}), flush=True)
+    print(json.dumps({"localization": loc_row}), flush=True)
     launches = {k: launches[k] + pipe_launches[k] + full_launches[k] + cli_launches[k] + pano_launches[k]
-                for k in launches}
+                + loc_launches[k] for k in launches}
     print(json.dumps({"kernels": [kernels_line(rows, agg_rows, launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

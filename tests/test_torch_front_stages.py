@@ -193,10 +193,30 @@ def test_front_stages_raise_without_cuda_or_for_unported(run, tmp_path):
             tst.feature_matching(q["sfm"], q["feats"], q["pairs"], str(tmp_path / "m.npz"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tst.feature_extraction(q["sfm"], str(tmp_path / "f"), describer_types="akaze", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.feature_extraction(q["sfm"], str(tmp_path / "f"), describer_types="sift,tag16h5", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.image_matching(q["sfm"], q["feats"], str(tmp_path / "p.txt"), method="frustum", device="cpu")
+    # the marker describer beside SIFT: the tag file equals the JAX stage's
+    tst.feature_extraction(q["sfm"], str(tmp_path / "f"), max_keypoints=MAX_KP, downscale_to=0, range_size=1,
+                           describer_types="sift,tag16h5", device="cpu")
+    jst.feature_extraction(run["jax"]["sfm"], str(tmp_path / "fj"), downscale_to=0, range_size=1,
+                           describer_types="tag16h5")
+    assert sorted(os.listdir(tmp_path / "f")) == ["1.feat.npz", "1.tag16h5.npz"]
+    assert tst.load_features(str(tmp_path / "f"), 1)["valid"].sum() > 100
+    with np.load(tmp_path / "f" / "1.tag16h5.npz") as a, np.load(tmp_path / "fj" / "1.tag16h5.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
+    # frustum pairs of the posed scene equal the JAX stage's
+    from alicevision_tpu_torch import sfmdata as tsd
+
+    posed = tsd.load(q["sfm"])
+    for v in range(N_VIEWS):
+        posed.set_pose(v, run["R"][v], run["c"][v])
+    tsd.save(posed, str(tmp_path / "posed.sfm"))
+    got = tst.image_matching(str(tmp_path / "posed.sfm"), q["feats"], str(tmp_path / "p.txt"), method="frustum",
+                             device="cpu")
+    want = jst.image_matching(str(tmp_path / "posed.sfm"), q["feats"], str(tmp_path / "pj.txt"), method="frustum")
+    np.testing.assert_array_equal(got, want)
+    assert len(got) == N_VIEWS * (N_VIEWS - 1) // 2
+    assert (tmp_path / "p.txt").read_text() == (tmp_path / "pj.txt").read_text()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tst.feature_matching(q["sfm"], q["feats"], q["pairs"], str(tmp_path / "m.npz"),
                              geometric="homography_growing", device="cpu")
