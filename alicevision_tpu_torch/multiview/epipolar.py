@@ -5,7 +5,7 @@ src/aliceVision/multiview/relativePose/Fundamental7PSolver.hpp,
 Fundamental8PSolver.hpp, Essential8PSolver.hpp, Homography4PSolver.hpp).
 Every solver is closed-form batched linear algebra over fixed-size design
 matrices, batched over leading dimensions (RANSAC's hypotheses): null
-vectors from `numeric.eigh` of AᵀA, rank projections from `numeric.svd`
+vectors from `numeric.normal_eigh` of AᵀA, rank projections from `numeric.svd`
 (torch's, with NaN for a non-finite matrix as JAX's), the 7-point cubic in closed form. Eigen- and singular
 vectors carry a sign (and F, H a scale) that differs between libraries;
 every model is normalized as the reference normalizes it, and compares up
@@ -22,7 +22,7 @@ import math
 import torch
 
 from ..geometry import Pose, pose_from_Rt
-from ..numeric import cubic_roots_real, eigh, f32_matmuls, svd
+from ..numeric import cubic_roots_real, f32_matmuls, normal_eigh, svd
 from .triangulation import triangulate_dlt
 
 _EPS = 1e-12
@@ -74,9 +74,9 @@ def _epipolar_design(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 
 
 def _nullvectors(A: torch.Tensor, k: int) -> torch.Tensor:
-    """k smallest right singular vectors of A (..., N, 9) -> (..., k, 9)."""
-    AtA = A.transpose(-1, -2) @ A
-    _, V = eigh(AtA)
+    """k smallest right singular vectors of A (..., N, 9) -> (..., k, 9),
+    from `numeric.normal_eigh` (float64 on a card)."""
+    _, V = normal_eigh(A)
     return V[..., :, :k].transpose(-1, -2)
 
 

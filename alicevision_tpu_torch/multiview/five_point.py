@@ -30,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-from ..numeric import eigh, f32_matmuls
+from ..numeric import f32_matmuls, normal_eigh
 
 # Monomial order (Nistér's split): the 10 leading cubic monomials that
 # Gauss-Jordan eliminates, then the 10-dim tail the reduced rows live in.
@@ -285,7 +285,9 @@ def essential_5pt(x1n: torch.Tensor, x2n: torch.Tensor):
     u1, v1 = x1n[..., 0], x1n[..., 1]
     u2, v2 = x2n[..., 0], x2n[..., 1]
     A = torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, torch.ones_like(u1)], dim=-1)
-    _, V = eigh(A.transpose(-1, -2) @ A)
+    # float64 on a card: there the batched float32 eigh agreed with the CPU
+    # on 0.960 of 4096 samples (chip_smoke.py's `solvers` step)
+    _, V = normal_eigh(A)
     basis = V[..., :, :4].transpose(-1, -2)  # (..., 4, 9) null space
     XYZW = basis.reshape(basis.shape[:-1] + (3, 3))
 

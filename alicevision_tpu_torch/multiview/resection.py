@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..geometry.rotations import hat, so3_exp
-from ..numeric import eigh, f32_matmuls, quartic_roots_real, svd
+from ..numeric import eigh64, f32_matmuls, quartic_roots_real, svd
 
 _EPS = 1e-12
 
@@ -156,17 +156,6 @@ def gauss_newton_pose_refine(
     return R, t
 
 
-def _eigh64(A: torch.Tensor):
-    """`eigh` of the small normal matrices of DLT and EPnP, taken in
-    float64 and returned in A's dtype. Their eigenvalues span ~1e8, and a
-    card's batched float32 eigh (Jacobi sweeps) loses the smallest
-    eigenvector where LAPACK's keeps it: on an H100, 5.8 % of the hard
-    scene's 6-point DLT samples came out invalid in float32 (1.4 % in
-    float64; the JAX package on the CPU 1.8 %)."""
-    w, V = eigh(A.double())
-    return w.to(A.dtype), V.to(A.dtype)
-
-
 @f32_matmuls
 def resection_dlt6(world: torch.Tensor, obs_norm: torch.Tensor, mask: torch.Tensor | None = None):
     """6-point (or more) DLT resection on the normalized image plane
@@ -182,7 +171,7 @@ def resection_dlt6(world: torch.Tensor, obs_norm: torch.Tensor, mask: torch.Tens
     row_u = torch.cat([X, zeros, -u * X], dim=-1)  # (..., N, 12)
     row_v = torch.cat([zeros, X, -v * X], dim=-1)
     A = torch.cat([row_u, row_v], dim=-2) * torch.cat([w, w], dim=-1)[..., None]
-    _, eigvec = _eigh64(A.transpose(-1, -2) @ A)
+    _, eigvec = eigh64(A.transpose(-1, -2) @ A)
     p = eigvec[..., :, 0]  # (..., 12)
     P = p.reshape(p.shape[:-1] + (3, 4))
     Rraw, t = P[..., :3], P[..., 3]
@@ -223,7 +212,7 @@ def epnp(world: torch.Tensor, obs_norm: torch.Tensor, mask: torch.Tensor | None 
     wn = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=_EPS)
     c0 = torch.sum(world * wn[..., None], dim=-2)  # centroid (..., 3)
     Xc = (world - c0[..., None, :]) * torch.sqrt(wn)[..., None]
-    eval_, evec = _eigh64(Xc.transpose(-1, -2) @ Xc)  # ascending
+    eval_, evec = eigh64(Xc.transpose(-1, -2) @ Xc)  # ascending
     axes = evec * torch.sqrt(torch.clamp(eval_, min=1e-10))[..., None, :]  # columns
     ctrl = torch.cat([c0[..., None, :], c0[..., None, :] + axes.transpose(-1, -2)], dim=-2)  # (..., 4, 3)
     # barycentric coordinates: alphas solve ctrlᵀ alpha = [X; 1]
@@ -237,7 +226,7 @@ def epnp(world: torch.Tensor, obs_norm: torch.Tensor, mask: torch.Tensor | None 
     Mu = (alphas[..., :, None] * ru[..., None, :]).flatten(-2) * w[..., None]  # (..., N, 12)
     Mv = (alphas[..., :, None] * rv[..., None, :]).flatten(-2) * w[..., None]
     M = torch.cat([Mu, Mv], dim=-2)  # (..., 2N, 12)
-    _, V = _eigh64(M.transpose(-1, -2) @ M)
+    _, V = eigh64(M.transpose(-1, -2) @ M)
     d_world = _pairwise_dists(ctrl)  # (..., 6)
 
     def beta_case1(vcol):

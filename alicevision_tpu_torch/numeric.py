@@ -64,14 +64,80 @@ def _nan_where_not(ok: torch.Tensor, x: torch.Tensor, matrix_dims: int) -> torch
     return torch.where(ok.reshape(ok.shape + (1,) * matrix_dims), x, torch.full_like(x, torch.nan))
 
 
+# cuSOLVER's batched syev refuses a batch of 32767 or more small matrices
+# (CUSOLVER_STATUS_INVALID_VALUE on an H100, 4x4 and 9x9, float32); 16384
+# pass, so a card's batches go in chunks of that many
+_EIGH_CHUNK = 16384
+
+
 def eigh(A: torch.Tensor):
     """`torch.linalg.eigh` over a batch, with NaN eigenvalues and vectors for
     each matrix that holds a NaN or an infinity (JAX's LAPACK path returns
     NaN there; torch raises for the whole batch). A solver fed a degenerate
-    observation then drops that one candidate, as the reference does."""
+    observation then drops that one candidate, as the reference does. A
+    card's batch is decomposed _EIGH_CHUNK matrices at a time."""
     ok, safe = _finite_or_zero(A)
-    w, V = torch.linalg.eigh(safe)
+    flat = safe.reshape((-1,) + safe.shape[-2:])
+    if safe.is_cuda and flat.shape[0] > _EIGH_CHUNK:
+        parts = [torch.linalg.eigh(c) for c in flat.split(_EIGH_CHUNK)]
+        w = torch.cat([p[0] for p in parts]).reshape(safe.shape[:-1])
+        V = torch.cat([p[1] for p in parts]).reshape(safe.shape)
+    else:
+        w, V = torch.linalg.eigh(safe)
     return _nan_where_not(ok, w, 1), _nan_where_not(ok, V, 2)
+
+
+def eigh64(A: torch.Tensor):
+    """`eigh` taken in float64 and returned in A's dtype, for the small
+    ill-conditioned normal matrices of the null-vector solvers (DLT, EPnP,
+    Zhang's B matrix, the calibration LM steps). Their eigenvalues span
+    ~1e8, and a card's batched float32 eigh (Jacobi sweeps) loses the
+    smallest eigenvector where LAPACK's keeps it: on an H100, 5.8 % of the
+    hard scene's 6-point DLT samples came out invalid in float32 (1.4 % in
+    float64; the JAX package on the CPU 1.8 %)."""
+    w, V = eigh(A.double())
+    return w.to(A.dtype), V.to(A.dtype)
+
+
+_normal_f64_everywhere = False
+
+
+@contextlib.contextmanager
+def normal_eigh_in_float64():
+    """Take `normal_eigh`'s float64 route on every device (a card takes it
+    always): the CPU tests hold the card's route to the JAX package's
+    float64 results."""
+    global _normal_f64_everywhere
+    prev, _normal_f64_everywhere = _normal_f64_everywhere, True
+    try:
+        yield
+    finally:
+        _normal_f64_everywhere = prev
+
+
+def normal_eigh(A: torch.Tensor):
+    """`eigh` of AᵀA for the null-vector solvers (5-point, F, H), returned
+    in A's dtype. On a card AᵀA is formed and decomposed in float64: there
+    the batched float32 eigh (Jacobi sweeps) lost the null space where
+    LAPACK keeps it (on an H100, 0.598 of 4096 8-point samples of the hard
+    scene solved against the CPU's 0.841). On the CPU it is LAPACK's
+    float32, as the JAX package computes it."""
+    if A.is_cuda or _normal_f64_everywhere:
+        A64 = A.double()
+        w, V = eigh(A64.transpose(-1, -2) @ A64)
+        return w.to(A.dtype), V.to(A.dtype)
+    return eigh(A.transpose(-1, -2) @ A)
+
+
+def svd64(A: torch.Tensor):
+    """`svd` taken in float64 and returned in A's dtype (see `eigh64`)."""
+    return tuple(x.to(A.dtype) for x in svd(A.double()))
+
+
+def solve64(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`torch.linalg.solve` of a small normal-equation system in float64,
+    returned in b's dtype (see `eigh64`)."""
+    return torch.linalg.solve(A.double(), b.double()).to(b.dtype)
 
 
 def svd(A: torch.Tensor):

@@ -803,6 +803,17 @@ def _hardware_resources(args):
     print(json.dumps(info, indent=1))
 
 
+def _checkerboard_calibration(args):
+    """Zhang calibration over a checkerboard sequence, unit squares
+    (the reference cli.py's checkerboardCalibration)."""
+    from .cli_ext import checkerboard_calibration
+
+    res, n = checkerboard_calibration(args.inputFolder, args.rows, args.cols, 1.0, args.dev)
+    with open(args.output, "w") as f:
+        json.dump({"K": res["K"].tolist(), "dist": res["dist"].tolist(), "rms": res["rms"], "n_views": n}, f,
+                  indent=1)
+
+
 def _sfm_transform(args):
     from .. import sfmdata
     from ..sfm import alignment as al
@@ -1169,6 +1180,7 @@ _HANDLERS = {
     "ldrToHdrCalibration": _ldr_to_hdr_calibration,
     "ldrToHdrMerge": _ldr_to_hdr_merge,
     "nodalSfM": _rotation_sfm,
+    "checkerboardCalibration": _checkerboard_calibration,
 }
 
 

@@ -680,7 +680,36 @@ def _setup_checker_detect(p):
     p.add_argument("--cols", type=int, required=True)
 
 
-command("checkerboardDetection", _setup_checker_detect)(_not_ported)
+def _image_paths(folder):
+    """The folder's images (`_list_queries`) as paths."""
+    return [os.path.join(folder, f) for f in _list_queries(folder)]
+
+
+def _folder_or_file(path):
+    return _image_paths(path) if os.path.isdir(path) else [path]
+
+
+def _checkerboard_detection(args):
+    """ref: src/software/pipeline/main_checkerboardDetection.cpp,
+    calibration/checkerDetector.cpp"""
+    import numpy as np
+
+    from ..calibration import detect_checkerboard
+    from ..image.io import read_image
+
+    files = _folder_or_file(args.input)
+    out = {}
+    for path in files:
+        g = detect_checkerboard(read_image(path, grayscale=True), args.rows, args.cols, device=args.dev)
+        if g is not None:
+            out[os.path.basename(path)] = np.asarray(g).tolist()
+    _ensure_parent(args.output)
+    with open(args.output, "w") as f:
+        json.dump({"rows": args.rows, "cols": args.cols, "detections": out}, f)
+    print(json.dumps({"detected": len(out), "images": len(files)}))
+
+
+command("checkerboardDetection", _setup_checker_detect)(_checkerboard_detection)
 
 
 def _setup_camera_calibration(p):
@@ -691,7 +720,37 @@ def _setup_camera_calibration(p):
     p.add_argument("--squareSize", type=float, default=1.0)
 
 
-command("cameraCalibration", _setup_camera_calibration)(_not_ported)
+def checkerboard_calibration(folder, rows, cols, square_size, dev):
+    """Zhang calibration of the checkerboard grids found in `folder`'s
+    images (at least 3): (calibrate_zhang's dict, views used)."""
+    import numpy as np
+
+    from ..calibration import calibrate_zhang, detect_checkerboard
+    from ..image.io import read_image
+
+    grids = []
+    for path in _image_paths(folder):
+        g = detect_checkerboard(read_image(path, grayscale=True), rows, cols, device=dev)
+        if g is not None:
+            grids.append(np.asarray(g))
+    if len(grids) < 3:
+        raise RuntimeError(f"checkerboard found in only {len(grids)} images")
+    obj = square_size * np.array([[i, j] for j in range(rows) for i in range(cols)], float)
+    return calibrate_zhang(obj, np.stack(grids), device=dev), len(grids)
+
+
+def _camera_calibration(args):
+    """Zhang calibration over a checkerboard sequence
+    (ref: src/software/pipeline/main_cameraCalibration.cpp)."""
+    res, n = checkerboard_calibration(args.input, args.rows, args.cols, args.squareSize, args.dev)
+    _ensure_parent(args.output)
+    with open(args.output, "w") as f:
+        json.dump({"K": res["K"].tolist(), "dist": res["dist"].tolist(), "rms": res["rms"], "n_views": n}, f,
+                  indent=1)
+    print(json.dumps({"rms": res["rms"], "views": n}))
+
+
+command("cameraCalibration", _setup_camera_calibration)(_camera_calibration)
 
 
 def _setup_disto_calib(p):
@@ -708,7 +767,49 @@ def _setup_disto_calib(p):
                         "(ref: main_distortionCalibration.cpp)")
 
 
-command("distortionCalibration", _setup_disto_calib)(_not_ported)
+def _distortion_calibration(args):
+    """Distortion from checkerboard line straightness
+    (ref: src/software/pipeline/main_distortionCalibration.cpp,
+    calibration/distortionEstimationLine.cpp)."""
+    import numpy as np
+
+    from .. import camera as camm
+    from .. import sfmdata
+    from ..calibration.distortion_lines import calibrate_distortion_from_lines, calibrate_undistortion_from_lines
+    from ..camera import undistortion as und
+
+    sc = sfmdata.load(args.input)
+    with open(args.checkerboards) as f:
+        data = json.load(f)
+    rows, cols = data["rows"], data["cols"]
+    lines = []
+    for det in data["detections"].values():
+        g = np.asarray(det, float).reshape(rows, cols, 2)
+        lines += [g[r] for r in range(rows)] + [g[:, c] for c in range(cols)]
+    n = max(rows, cols)
+    pts = np.zeros((len(lines), n, 2))
+    mask = np.zeros((len(lines), n), bool)
+    for k, ln in enumerate(lines):
+        pts[k, :len(ln)] = ln
+        mask[k, :len(ln)] = True
+    if args.undistortionModelName != "none":
+        kind = und.UNDIST_CODES[args.undistortionModelName]
+        init = und.Undistortion.make(kind, int(sc.sizes[0, 0]), int(sc.sizes[0, 1]))
+        fitted, rms_before, rms_after = calibrate_undistortion_from_lines(pts, mask, init, device=args.dev)
+        for i in range(sc.n_intrinsics):
+            und.set_scene_undistortion(sc, i, fitted)
+    else:
+        row = sc.intrinsics_table(device=args.dev).row(0)
+        disto, rms_before, rms_after = calibrate_distortion_from_lines(pts, mask, row, n_params=args.nbParams,
+                                                                       device=args.dev)
+        for i in range(sc.n_intrinsics):
+            sc.disto_kind[i] = camm.DISTO_RADIALK3
+            sc.disto[i] = disto.cpu().numpy()
+    sfmdata.save(sc, args.output)
+    print(json.dumps({"rms_before": float(rms_before), "rms_after": float(rms_after)}))
+
+
+command("distortionCalibration", _setup_disto_calib)(_distortion_calibration)
 
 
 def _setup_convert_disto(p):
@@ -719,7 +820,22 @@ def _setup_convert_disto(p):
                             "fisheye1"])
 
 
-command("convertDistortion", _setup_convert_disto)(_not_ported)
+def _convert_distortion(args):
+    """ref: src/software/convert/main_convertDistortion.cpp"""
+    from .. import camera as camm
+    from .. import sfmdata
+    from ..camera.convert import convert_intrinsic_distortion
+
+    name_to_kind = {"none": camm.DISTO_NONE, "radialk1": camm.DISTO_RADIALK1, "radialk3": camm.DISTO_RADIALK3,
+                    "brown": camm.DISTO_BROWN, "fisheye4": camm.DISTO_FISHEYE, "fisheye1": camm.DISTO_FISHEYE1}
+    sc = sfmdata.load(args.input)
+    for i in range(sc.n_intrinsics):
+        convert_intrinsic_distortion(sc, i, name_to_kind[args.to], device=args.dev)
+    sfmdata.save(sc, args.output)
+    print(json.dumps({"intrinsics": sc.n_intrinsics, "to": args.to}))
+
+
+command("convertDistortion", _setup_convert_disto)(_convert_distortion)
 
 
 def _setup_export_disto(p):
@@ -727,7 +843,45 @@ def _setup_export_disto(p):
     p.add_argument("--output", required=True, help="output folder")
 
 
-command("exportDistortion", _setup_export_disto)(_not_ported)
+def _export_distortion(args):
+    """Undistort/distort STMaps + Nuke script per intrinsic
+    (ref: src/software/export/main_exportDistortion.cpp)."""
+    import numpy as np
+
+    from .. import sfmdata
+    from ..camera import undistortion as und
+    from ..camera.convert import distort_stmap, undistort_stmap
+
+    sc = sfmdata.load(args.input)
+    intr = sc.intrinsics_table(device=args.dev)
+    os.makedirs(args.output, exist_ok=True)
+    for i in range(sc.n_intrinsics):
+        row = intr.row(i)
+        iid = int(sc.intrinsic_ids[i])
+        # maps capped near 1024 px: STMaps are resolution independent
+        w, h = int(sc.sizes[i, 0]), int(sc.sizes[i, 1])
+        s = max(1, max(w, h) // 1024)
+        hh, ww = h // s, w // s
+        np.save(os.path.join(args.output, f"{iid}_undistort_stmap.npy"), undistort_stmap(row, hw=(hh, ww)))
+        np.save(os.path.join(args.output, f"{iid}_distort_stmap.npy"), distort_stmap(row, hw=(hh, ww)))
+        # Undistortion-family (3DE) STMaps when present
+        # (ref: main_exportDistortion.cpp undistortion branch)
+        u = und.scene_undistortion(sc, i)
+        if u is not None:
+            yy, xx = np.meshgrid(np.arange(hh), np.arange(ww), indexing="ij")
+            grid = (np.stack([xx, yy], -1).reshape(-1, 2) + 0.5) * np.array([w / ww, h / hh])
+            fwd = und.undistort_pixels(u, grid, device=args.dev).cpu().numpy().reshape(hh, ww, 2)
+            inv = und.inverse_pixels(u, grid, device=args.dev).cpu().numpy().reshape(hh, ww, 2)
+            np.save(os.path.join(args.output, f"{iid}_undistortion_stmap.npy"), fwd / [w, h])
+            np.save(os.path.join(args.output, f"{iid}_undistortion_inv_stmap.npy"), inv / [w, h])
+        fx, fy = sc.scale[i]
+        with open(os.path.join(args.output, f"{iid}_nuke.nk"), "w") as f:
+            f.write("# LensDistortion node (AliceVision-compatible export)\n"
+                    f"# intrinsic {iid}: fx={fx} fy={fy} disto={list(sc.disto[i])}\n")
+    print(json.dumps({"intrinsics": sc.n_intrinsics}))
+
+
+command("exportDistortion", _setup_export_disto)(_export_distortion)
 
 
 def _setup_ps(p):
@@ -738,7 +892,41 @@ def _setup_ps(p):
     p.add_argument("--integrate", action="store_true", help="also write depth")
 
 
-command("photometricStereo", _setup_ps)(_not_ported)
+def _read_stack(folder, dev):
+    import numpy as np
+    import torch
+
+    from ..image.io import read_image
+
+    files = _list_queries(folder)
+    imgs = np.stack([read_image(os.path.join(folder, f), grayscale=True) for f in files])
+    return files, torch.as_tensor(imgs, dtype=torch.float32, device=dev)
+
+
+def _photometric_stereo(args):
+    """ref: src/software/pipeline/main_photometricStereo.cpp,
+    photometricStereo/photometricStereo.cpp"""
+    import numpy as np
+    import torch
+
+    from ..photometric import normal_integration_dct, photometric_stereo
+
+    files, imgs = _read_stack(args.inputFolder, args.dev)
+    if args.lights.endswith(".npy"):
+        L = np.load(args.lights)
+    else:
+        with open(args.lights) as f:
+            L = np.asarray(json.load(f)["directions"], float)
+    normals, albedo = photometric_stereo(imgs, torch.as_tensor(L, dtype=torch.float32, device=args.dev))
+    os.makedirs(args.output, exist_ok=True)
+    np.save(os.path.join(args.output, "normals.npy"), normals.cpu().numpy())
+    np.save(os.path.join(args.output, "albedo.npy"), albedo.cpu().numpy())
+    if args.integrate:
+        np.save(os.path.join(args.output, "depth.npy"), normal_integration_dct(normals).cpu().numpy())
+    print(json.dumps({"images": len(files)}))
+
+
+command("photometricStereo", _setup_ps)(_photometric_stereo)
 
 
 def _setup_ni(p):
@@ -746,7 +934,19 @@ def _setup_ni(p):
     p.add_argument("--output", required=True, help="depth .npy")
 
 
-command("normalIntegration", _setup_ni)(_not_ported)
+def _normal_integration(args):
+    """ref: src/software/pipeline/main_normalIntegration.cpp"""
+    import numpy as np
+    import torch
+
+    from ..photometric import normal_integration_dct
+
+    normals = torch.as_tensor(np.load(args.input), dtype=torch.float32, device=args.dev)
+    _ensure_parent(args.output)
+    np.save(args.output, normal_integration_dct(normals).cpu().numpy())
+
+
+command("normalIntegration", _setup_ni)(_normal_integration)
 
 
 def _setup_le(p):
@@ -756,7 +956,28 @@ def _setup_le(p):
     p.add_argument("--output", required=True, help="SH coefficients .json")
 
 
-command("lightingEstimation", _setup_le)(_not_ported)
+def _lighting_estimation(args):
+    """ref: src/software/pipeline/main_lightingEstimation.cpp,
+    lightingEstimation/lightingEstimation.cpp"""
+    import numpy as np
+    import torch
+
+    from ..image.io import read_image
+    from ..photometric import estimate_sh_lighting
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=args.dev)
+
+    albedo = t(np.load(args.albedo)) if args.albedo else None
+    L = estimate_sh_lighting(t(read_image(args.image, grayscale=True)), t(np.load(args.normals)), albedo=albedo)
+    L = L.cpu().numpy()
+    _ensure_parent(args.output)
+    with open(args.output, "w") as f:
+        json.dump({"sh": L.tolist()}, f)
+    print(json.dumps({"sh_dim": int(L.shape[-1])}))
+
+
+command("lightingEstimation", _setup_le)(_lighting_estimation)
 
 
 def _setup_lc(p):
@@ -766,7 +987,31 @@ def _setup_lc(p):
     p.add_argument("--output", required=True, help="lights .json")
 
 
-command("lightingCalibration", _setup_lc)(_not_ported)
+def _lighting_calibration(args):
+    """ref: src/software/pipeline/main_lightingCalibration.cpp,
+    lightingEstimation/lightingCalibration.cpp (brightestPoint)"""
+    from ..image.io import read_image
+    from ..misc.sphere_detection import detect_sphere
+    from ..photometric.light_calibration import calibrate_light_from_sphere
+
+    dirs = []
+    for path in _image_paths(args.inputFolder):
+        img = read_image(path, grayscale=True)
+        if args.sphere:
+            cx, cy, r = [float(x) for x in args.sphere.split(",")]
+        else:
+            det = detect_sphere(img)
+            if det is None:
+                continue
+            cx, cy, r = det[0], det[1], det[2]
+        dirs.append(calibrate_light_from_sphere(img, cx, cy, r, device=args.dev).tolist())
+    _ensure_parent(args.output)
+    with open(args.output, "w") as f:
+        json.dump({"directions": dirs}, f)
+    print(json.dumps({"lights": len(dirs)}))
+
+
+command("lightingCalibration", _setup_lc)(_lighting_calibration)
 
 
 def _setup_sphere(p):
@@ -776,7 +1021,21 @@ def _setup_sphere(p):
     p.add_argument("--maxRadius", type=int, default=64)
 
 
-command("sphereDetection", _setup_sphere)(_not_ported)
+def _sphere_detection(args):
+    """ref: src/software/pipeline/main_sphereDetection.cpp (classical Hough
+    voting on the host in place of the reference's ONNX model)."""
+    from ..image.io import read_image
+    from ..misc.sphere_detection import detect_sphere
+
+    det = detect_sphere(read_image(args.input, grayscale=True), r_min=args.minRadius, r_max=args.maxRadius)
+    _ensure_parent(args.output)
+    with open(args.output, "w") as f:
+        json.dump({"found": det is not None, "sphere": list(det[:3]) if det else None,
+                   "score": det[3] if det else 0.0}, f)
+    print(json.dumps({"found": det is not None}))
+
+
+command("sphereDetection", _setup_sphere)(_sphere_detection)
 
 
 def _setup_image_masking(p):
@@ -1294,7 +1553,31 @@ def _setup_cc_detect(p):
     p.add_argument("--output", required=True, help="detections .json")
 
 
-command("colorCheckerDetection", _setup_cc_detect)(_not_ported)
+def _color_checker_detection(args):
+    """ref: src/software/utils/main_colorCheckerDetection.cpp"""
+    import numpy as np
+
+    from ..image.io import read_image
+    from ..misc.color_checker import detect_color_checker
+
+    files = _folder_or_file(args.input)
+    out = {}
+    for path in files:
+        img = read_image(path)
+        if img.ndim == 2:
+            img = np.stack([img] * 3, -1)
+        det = detect_color_checker(img)
+        if det is not None:
+            centers, colors = det
+            out[os.path.basename(path)] = {"positions": np.asarray(centers).tolist(),
+                                           "colors": np.asarray(colors).tolist()}
+    _ensure_parent(args.output)
+    with open(args.output, "w") as f:
+        json.dump({"checkers": out}, f)
+    print(json.dumps({"detected": len(out)}))
+
+
+command("colorCheckerDetection", _setup_cc_detect)(_color_checker_detection)
 
 
 def _setup_cc_correct(p):
@@ -1303,7 +1586,32 @@ def _setup_cc_correct(p):
     p.add_argument("--output", required=True, help="image or folder")
 
 
-command("colorCheckerCorrection", _setup_cc_correct)(_not_ported)
+def _color_checker_correction(args):
+    """ref: src/software/utils/main_colorCheckerCorrection.cpp"""
+    import numpy as np
+
+    from ..image.io import read_image, write_image
+    from ..misc.color_checker import apply_color_correction, color_correction_matrix
+
+    with open(args.detections) as f:
+        det = json.load(f)["checkers"]
+    if not det:
+        raise RuntimeError("no checker detections")
+    M = color_correction_matrix(np.asarray(next(iter(det.values()))["colors"]))
+    if os.path.isdir(args.input):
+        os.makedirs(args.output, exist_ok=True)
+        pairs = [(os.path.join(args.input, f), os.path.join(args.output, f)) for f in _list_queries(args.input)]
+    else:
+        pairs = [(args.input, args.output)]
+    for src, dst in pairs:
+        img = read_image(src)
+        if img.ndim == 2:
+            img = np.stack([img] * 3, -1)
+        write_image(dst, np.clip(apply_color_correction(img, M), 0, 1))
+    print(json.dumps({"images": len(pairs)}))
+
+
+command("colorCheckerCorrection", _setup_cc_correct)(_color_checker_correction)
 
 
 def _setup_export_mvstex(p):

@@ -18,8 +18,9 @@ observations name (renumbered; ~20 MB), which
 `scripts/localization_reference.py --inputs DIR/localization_inputs` reads.
 
 With --seeds K, each cameraLocalization run of the phase is repeated with
-the CLI's loop for draws k = 0..K-1 (`seed_sweep`: the vocabulary tree
-trained with seed k, the RANSAC generator seeded k; draw 0 is the CLI's),
+the CLI's loop for draws k = 0..K-1 (`chip_smoke.localization_sweep`: the
+vocabulary tree trained with seed k, the RANSAC generator seeded k; draw 0
+is the CLI's),
 and the right and wrong successes of each draw are printed (`seed_sweep`
 lines). With --databases N, the images path runs N
 times (incrementalSfm on the card is not deterministic, so each run gives
@@ -70,46 +71,6 @@ def save_compact_inputs(db_sfm: str, feats: str, out: str) -> dict:
     return {"views": int(sc.n_views), "observations": int(sc.n_observations), "features_kept": int(kept)}
 
 
-def seed_sweep(db_sfm: str, feats: str, inputs: dict, R_gt, c_gt, dev, seeds: int) -> dict:
-    """The phase's cameraLocalization runs (`chip_smoke.
-    localization_camera_runs`) as the port's CLI loops over the queries,
-    for draws k < seeds: the tree of VoctreeLocalizer(seed=k), the RANSAC
-    generator seeded k. Returns {run: [chip_smoke.sweep_entry of each
-    draw]}."""
-    from alicevision_tpu_torch.localization import localize_image
-    from alicevision_tpu_torch.localization.voctree_localizer import VoctreeLocalizer
-    from alicevision_tpu_torch.pipeline import cli_ext
-
-    sc = sfmdata.load(db_sfm)
-    align, C = chip_smoke._database_frame(sc, R_gt, c_gt)
-    radius = float(np.linalg.norm(c_gt - c_gt.mean(0), axis=1).mean())
-    obs_desc = cli_ext._obs_descriptors(sc, feats)
-    vlocs = {}
-    lm_desc, lm_pts = cli_ext._build_landmark_index_from_features(sc, feats)
-    row = sc.intrinsics_table(device=dev).row(0)
-    fx, wh = float(np.mean(sc.scale[:, 0])), (float(sc.sizes[0, 0]), float(sc.sizes[0, 1]))
-    poses = inputs["poses"]
-    out = {}
-    for run, (method, folder, ds) in chip_smoke.localization_camera_runs(inputs).items():
-        names = cli_ext._list_queries(folder)
-        qf = [cli_ext._query_features(os.path.join(folder, n), row, dev, 2048, 1024 if ds is None else ds)
-              for n in names]
-        out[run] = []
-        for seed in range(seeds):
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            res = {}
-            if method == "voctree" and seed not in vlocs:
-                vlocs[seed] = VoctreeLocalizer(sc.points, sc.obs_landmark, sc.obs_view, obs_desc, seed=seed,
-                                               device=dev)
-            for n, (desc, p) in zip(names, qf):
-                r = (vlocs[seed].localize(gen, desc, p, fx, wh) if method == "voctree"
-                     else localize_image(gen, lm_desc, lm_pts, desc, p, fx, wh, device=dev))
-                res[n] = {"success": bool(r.success), "n_inliers": int(r.n_inliers), "R": np.asarray(r.R).tolist(),
-                          "c": np.asarray(r.c).tolist()}
-            out[run].append(chip_smoke.sweep_entry(res, names, poses["R0"], poses["c0"], align, C, radius, seed))
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
@@ -146,7 +107,8 @@ def main() -> int:
                 chip_smoke.with_feature_ids(os.path.join(db_work, "hard_sfm.sfm"), feats,
                                             os.path.join(loc, "database.sfm"))
             if args.seeds:
-                sweep = seed_sweep(os.path.join(loc, "database.sfm"), feats, inputs, R_gt, c_gt, dev, args.seeds)
+                sweep = chip_smoke.localization_sweep(os.path.join(loc, "database.sfm"), feats, inputs, R_gt, c_gt, dev,
+                                                      args.seeds, runs=chip_smoke.LOC_CAMERA_RUNS)
                 print(f"seed_sweep {i} " + json.dumps(sweep), flush=True)
             if args.out:
                 os.makedirs(args.out, exist_ok=True)

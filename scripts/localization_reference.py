@@ -3,7 +3,7 @@
 the CPU: the numbers its gates are set from.
 
     python3 scripts/localization_reference.py --inputs DIR [--work DIR]
-        [--solver-batch N] [--marker-frames N] [--keys K] [--sweep-only]
+        [--solver-batch N] [--marker-frames N] [--keys K] [--sweep-only] [--runs A,B]
 
 DIR is `scripts/localization_phase_torch.py --out`'s localization_inputs/
 (the card's hard-scene reconstruction with feature ids, and the features
@@ -23,7 +23,8 @@ the JAX CLI's loop for draws k = 0..K-1 (`key_sweep`: the vocabulary tree
 trained with seed k, RANSAC keys split from PRNGKey(k); draw 0 is the
 CLI's), and the right and wrong successes of each draw are printed, as
 `scripts/localization_phase_torch.py --seeds` prints the port's;
---sweep-only skips the rest.
+--sweep-only skips the rest, and --runs limits the sweep to those runs
+(chip_smoke.LOC_SWEEP_RUNS are the ones its K-draw gates read).
 """
 
 from __future__ import annotations
@@ -130,11 +131,12 @@ def jax_markers(work: str, frames: int) -> dict:
             "centre_err_max": float(np.linalg.norm(c_est - c_gt, axis=1).max())}
 
 
-def key_sweep(sfm: str, feats: str, inputs: dict, R_gt, c_gt, keys: int) -> dict:
+def key_sweep(sfm: str, feats: str, inputs: dict, R_gt, c_gt, keys: int, runs=None) -> dict:
     """The phase's cameraLocalization runs as the JAX CLI's loop
     (`alicevision_tpu.pipeline.cli_ext._camera_localization`), for draws k
     < keys: the tree of VoctreeLocalizer(seed=k), the key sequence split
-    from PRNGKey(k). The localizers' robust P3P is jitted for the sweep
+    from PRNGKey(k); the LOC_2X runs read the scene scaled
+    (`chip_smoke.scale_intrinsics`); `runs` picks runs (default all). The localizers' robust P3P is jitted for the sweep
     (the same function; eagerly each call takes seconds). Returns {run:
     [chip_smoke.sweep_entry of each draw]}."""
     import jax.numpy as jnp
@@ -150,12 +152,11 @@ def key_sweep(sfm: str, feats: str, inputs: dict, R_gt, c_gt, keys: int) -> dict
     from alicevision_tpu.pipeline import cli_ext as jext
 
     sc = jsd.load(sfm)
+    sc_2x = chip_smoke.scale_intrinsics(jsd.load(sfm))
     align, C = chip_smoke._database_frame(sc, R_gt, c_gt)
     radius = float(np.linalg.norm(c_gt - c_gt.mean(0), axis=1).mean())
     obs_desc = jext._obs_descriptors(sc, feats)
     lm_desc, lm_pts = jext._build_landmark_index_from_features(sc, feats)
-    fx, wh = float(np.mean(sc.scale[:, 0])), (float(sc.sizes[0, 0]), float(sc.sizes[0, 1]))
-    row = jtu.tree_map(lambda a: jnp.asarray(np.asarray(a)[0]), sc.intrinsics_table())
     poses = inputs["poses"]
     eager = jrb.robust_resection_p3p
     jitted = jax.jit(eager, static_argnames=("im_size", "n_hyps", "max_error_px", "refine_iters"))
@@ -167,7 +168,12 @@ def key_sweep(sfm: str, feats: str, inputs: dict, R_gt, c_gt, keys: int) -> dict
     vlocs, out = {}, {}
     jrb.robust_resection_p3p = resect
     try:
-        for run, (method, folder, ds) in chip_smoke.localization_camera_runs(inputs).items():
+        for run, (method, folder, ds, scaled) in chip_smoke.localization_camera_runs(inputs).items():
+            if runs and run not in runs:
+                continue
+            db = sc_2x if scaled else sc
+            fx, wh = float(np.mean(db.scale[:, 0])), (float(db.sizes[0, 0]), float(db.sizes[0, 1]))
+            row = jtu.tree_map(lambda a: jnp.asarray(np.asarray(a)[0]), db.intrinsics_table())
             ds = 1024 if ds is None else ds
             names = sorted(f for f in os.listdir(folder) if f.endswith(".npy"))
             qf = []
@@ -211,6 +217,7 @@ def main() -> int:
     ap.add_argument("--marker-frames", type=int, default=chip_smoke.LOC_MARKER["frames"])
     ap.add_argument("--keys", type=int, default=0, help="PRNG keys a cameraLocalization run in the sweep")
     ap.add_argument("--sweep-only", action="store_true", help="only the key sweep")
+    ap.add_argument("--runs", default="", help="comma-separated camera runs of the sweep (default all)")
     args = ap.parse_args()
     work = args.work or tempfile.mkdtemp(prefix="loc_ref_")
     os.makedirs(work, exist_ok=True)
@@ -222,7 +229,8 @@ def main() -> int:
     truth_sfm = os.path.join(work, "truth.sfm")
     chip_smoke._truth_scene(sfm, truth_sfm, R_gt, c_gt)
     print(f"inputs rendered in {time.perf_counter() - t0:.1f} s", flush=True)
-    sweep = key_sweep(sfm, feats, inputs, R_gt, c_gt, args.keys) if args.keys else None
+    runs = [r for r in args.runs.split(",") if r]
+    sweep = key_sweep(sfm, feats, inputs, R_gt, c_gt, args.keys, runs) if args.keys else None
     if args.sweep_only:
         print(json.dumps({"key_sweep": sweep, "seconds": time.perf_counter() - t0}), flush=True)
         return 0

@@ -19,7 +19,7 @@ triangulated at the true poses (computeStructureFromKnownPoses).
   the port's own modules (the CLI's first query equals `localize_image`
   with the generator the CLI seeds); the modules are held to the JAX ones
   in tests/test_torch_localization.py.
-- 71 of the 103 subcommands run; the other 32 exit 1 naming ROADMAP item 13.
+- 84 of the 103 subcommands run; the other 19 exit 1 naming ROADMAP item 13.
 """
 
 import copy
@@ -43,6 +43,7 @@ torch.set_num_threads(1)
 CPU = ["--device", "cpu"]
 WH, FOCAL = (320, 240), 225.0
 N_QUERIES = 4
+SEEDS = 2  # draws of the phase's sweep at this size (LOC_SWEEP_SEEDS on the card)
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +77,7 @@ def phase(db, tmp_path_factory):
     work = str(tmp_path_factory.mktemp("locphase"))
     row = chip_smoke.run_localization_phase("cpu", work, sfm, feats, R_gt, c_gt, n_queries=N_QUERIES, wh=WH,
                                             focal_px=FOCAL, disto=(0.0, 0.0, 0.0), solver_batch=96, solver_cpu=32,
-                                            marker_frames=4)
+                                            marker_frames=4, sweep_seeds=SEEDS)
     return work, row
 
 
@@ -90,8 +91,18 @@ def test_chip_smoke_localization_phase_on_cpu(phase):
     assert set(row["seconds_per_query"]["voctree"]) == {"sift", "retrieval", "matching", "resection", "total"}
     for key in [f"camera_{m}" for m in chip_smoke.LOC_CAMERA_RUNS] + ["rig_joint", "rig_average"]:
         r = rep[key]
-        assert r["localized"] == N_QUERIES, (key, r)
-        assert max(r["rot_err_deg"]) < 2.0 and max(r["centre_err_frac"]) < 0.02, (key, r)
+        # the 2x renders (640x480, not decimated) meet the 320-px database
+        # at twice its scale: one query of the four is let go
+        assert r["localized"] >= N_QUERIES - key.endswith("_2x"), (key, r)
+        ok = [(a, c) for a, c in zip(r["rot_err_deg"], r["centre_err_frac"]) if a is not None]
+        assert max(a for a, _ in ok) < 2.0 and max(c for _, c in ok) < 0.02, (key, r)
+    # the sweep's draw 0 is the CLI's draw: the same queries right
+    assert set(row["sweep"]) == set(chip_smoke.LOC_SWEEP_RUNS)
+    for m, draws in row["sweep"].items():
+        assert [d["seed"] for d in draws] == list(range(SEEDS))
+        right = chip_smoke.right_wrong(rep[f"camera_{m}"], chip_smoke.LOC_GATES["rot_deg"],
+                                       chip_smoke.LOC_GATES["centre_frac"])[0]
+        assert draws[0]["right"] == right, (m, draws, rep[f"camera_{m}"])
     assert rep["subpose_rot_err_deg"] < 0.2 and rep["subpose_centre_err"] < 0.01
     assert rep["sfm_to_rig_cameras"] == N_QUERIES
     fr = rep["frustum"]
@@ -112,14 +123,18 @@ def test_chip_smoke_localization_phase_on_cpu(phase):
     g = chip_smoke.LOC_GATES
     short = {f"{kind} {m}" for kind, gates in (("camera", g["localized"]), ("rig", g["rig_frames"]))
              for m, want in gates.items() if want > N_QUERIES}
+    short |= {f"camera {m}" for m, want in g["localized_k"].items()
+              if want > sum(d["right"] for d in row["sweep"][m])}
     assert {b.split(":")[0] for b in chip_smoke.localization_misses(row)} == short
 
 
-def test_localization_gates_report_planted_faults(phase):
+def test_localization_gates_report_planted_faults(phase, monkeypatch):
     """localization_misses names a wrong pose reported as a success, an
     imprecise one that leaves too few right, and a wrong sub-pose."""
     _, row = phase
     g = chip_smoke.LOC_GATES
+    # the direct run's gate at this size's count, so that it can be missed
+    monkeypatch.setitem(g["localized"], "direct", N_QUERIES)
 
     def planted(edit):
         bad = copy.deepcopy(row)
@@ -144,6 +159,33 @@ def test_localization_gates_report_planted_faults(phase):
     assert planted(wrong) == {"camera direct"}
     assert planted(imprecise) == {f"camera {met}"}
     assert planted(subpose) == {"rigCalibration"}
+
+
+def test_localization_k_draw_gates_report_planted_faults(phase, monkeypatch):
+    """A K-draw total one under its gate, and one wrong success in one
+    draw, are named; a row at its gates passes them."""
+    _, row = phase
+    g = chip_smoke.LOC_GATES
+    for m, draws in row["sweep"].items():
+        monkeypatch.setitem(g["localized_k"], m, sum(d["right"] for d in draws))
+    base = {b.split(":")[0] for b in chip_smoke.localization_misses(row)}
+    assert not any(b in base for b in (f"camera {m}" for m in row["sweep"]))
+    m = "voctree_2x"
+
+    def planted(edit):
+        bad = copy.deepcopy(row)
+        edit(bad["sweep"][m])
+        return {b.split(":")[0] for b in chip_smoke.localization_misses(bad)} - base
+
+    def one_under(draws):
+        d = next(d for d in draws if d["right"])
+        d["right"] -= 1
+
+    def wrong_in_one_draw(draws):
+        draws[-1]["wrong"].append({"query": "q_00.npy", "rot_deg": 88.7, "centre_frac": 0.4, "n_inliers": 12})
+
+    assert planted(one_under) == {f"camera {m}"}
+    assert planted(wrong_in_one_draw) == {f"camera {m}"}
 
 
 def test_camera_localization_equals_module(db, phase):
@@ -251,8 +293,9 @@ def test_subcommands_ported_count():
     sub = next(a for a in ap._actions if a.dest == "cmd").choices
     unported = [n for n, p in sub.items()
                 if (p._defaults.get("_handler") or tcli._HANDLERS.get(n, cli_ext._not_ported)) is cli_ext._not_ported]
-    assert len(sub) == 103 and len(unported) == 32
+    assert len(sub) == 103 and len(unported) == 19
     for name in ("cameraLocalization", "rigCalibration", "rigTransform", "rigLocalization", "sfmToRig",
                  "frustumFiltering", "sfmTransfer", "applyCalibration", "sfmDistances", "sfmRegression", "sfmMerge",
                  "sfmSplitReconstructed", "generateSampleScene"):
         assert name not in unported
+

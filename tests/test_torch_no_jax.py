@@ -31,7 +31,10 @@ wanted = {"geometry.rotations", "geometry.pose", "camera.models", "utils.synthet
           "hdr.merge", "sfm.global_sfm", "sfm.rotation_sfm", "lp", "lp.linfinity", "localization",
           "localization.localizer", "localization.voctree_localizer", "localization.marker_localizer",
           "features.markers", "misc", "misc.rig", "sfm.rig_sequence", "sfm.frustum", "sfm.transfer",
-          "sfmdata.merge"}
+          "sfmdata.merge", "camera.undistortion", "camera.convert", "calibration", "calibration.checkerboard",
+          "calibration.zhang", "calibration.distortion_lines", "misc.color_checker", "misc.sphere_detection",
+          "photometric", "photometric.stereo", "photometric.lighting", "photometric.light_calibration",
+          "utils.calibration_scenes"}
 missing = wanted - {n.split(".", 1)[1] for n in names}
 assert not missing, missing
 for name in names:
