@@ -99,33 +99,22 @@ def eigh64(A: torch.Tensor):
     return w.to(A.dtype), V.to(A.dtype)
 
 
-_normal_f64_everywhere = False
-
-
-@contextlib.contextmanager
-def normal_eigh_in_float64():
-    """Take `normal_eigh`'s float64 route on every device (a card takes it
-    always): the CPU tests hold the card's route to the JAX package's
-    float64 results."""
-    global _normal_f64_everywhere
-    prev, _normal_f64_everywhere = _normal_f64_everywhere, True
-    try:
-        yield
-    finally:
-        _normal_f64_everywhere = prev
+def _normal_eigh64(A: torch.Tensor):
+    """`eigh` of AᵀA, formed and decomposed in float64, in A's dtype."""
+    A64 = A.double()
+    w, V = eigh(A64.transpose(-1, -2) @ A64)
+    return w.to(A.dtype), V.to(A.dtype)
 
 
 def normal_eigh(A: torch.Tensor):
     """`eigh` of AᵀA for the null-vector solvers (5-point, F, H), returned
-    in A's dtype. On a card AᵀA is formed and decomposed in float64: there
-    the batched float32 eigh (Jacobi sweeps) lost the null space where
-    LAPACK keeps it (on an H100, 0.598 of 4096 8-point samples of the hard
-    scene solved against the CPU's 0.841). On the CPU it is LAPACK's
-    float32, as the JAX package computes it."""
-    if A.is_cuda or _normal_f64_everywhere:
-        A64 = A.double()
-        w, V = eigh(A64.transpose(-1, -2) @ A64)
-        return w.to(A.dtype), V.to(A.dtype)
+    in A's dtype. On a card AᵀA is formed and decomposed in float64
+    (`_normal_eigh64`): there the batched float32 eigh (Jacobi sweeps) lost
+    the null space where LAPACK keeps it (on an H100, 0.598 of 4096 8-point
+    samples of the hard scene solved against the CPU's 0.841). On the CPU it
+    is LAPACK's float32, as the JAX package computes it."""
+    if A.is_cuda:
+        return _normal_eigh64(A)
     return eigh(A.transpose(-1, -2) @ A)
 
 

@@ -2,20 +2,23 @@
 """The `cli` phase's texture atlas fill, the port on the card against the
 JAX package's texturing of the same mesh, views and depth maps.
 
-    python3 scripts/cli_atlas_fill.py --out DIR [--repeats N]   # on the card
-    python3 scripts/cli_atlas_fill.py --inputs DIR/cli_texturing_inputs   # on the CPU
+    python3 scripts/cli_atlas_fill_reference.py --out DIR [--repeats N]   # on the card
+    python3 scripts/cli_atlas_fill_reference.py --inputs DIR/cli_texturing_inputs   # on the CPU
 
 On the card (from the repository root): `chip_smoke.make_posed_scene`'s 8
 views through the first 11 commands of `chip_smoke.cli_chain` (cameraInit
-to texturing, one process a stage), N times; each run's atlas fill (the
-share of the 2048² atlas's texels above 0, as the phase reads it), its
-mesh's vertices and faces and their share in the box world
-(`chip_smoke.mesh_box_stats`) are printed as JSON lines, and the first
-run's texturing inputs (the posed .sfm, the filtered mesh, the dense
-images and the depth maps, ~50 MB) are copied to
+to texturing, one process a stage), N times; each run's atlas fills
+(`chip_smoke.atlas_fills`: the share of the 2048² atlas's texels above 0,
+and that share inside the faces' UV triangles, as the phase reads them),
+and the filtered mesh's vertices and faces and their share in the box
+world (`chip_smoke.mesh_box_stats`, the mesh mapped into the rendered
+frame by the similarity that aligns the reconstruction's camera centres
+to the truth's, as the phase maps its surface mesh) are printed as JSON
+lines, and the first run's texturing inputs (the posed .sfm, the filtered
+mesh, the dense images and the depth maps, ~50 MB) are copied to
 DIR/cli_texturing_inputs/. On the CPU: texturing of those inputs at the
 phase's atlas size through the JAX CLI and through the port's
-(`--device cpu`), each atlas's fill printed as one JSON line.
+(`--device cpu`), each atlas's fills printed as one JSON line.
 """
 
 from __future__ import annotations
@@ -38,13 +41,6 @@ import chip_smoke  # noqa: E402
 INPUTS = ("sfm.sfm", "mesh_filtered.obj", "dense", "depth")
 
 
-def atlas_fill(textured_obj: str) -> float:
-    from alicevision_tpu_torch.image.io import read_image
-
-    atlas = read_image(textured_obj[:-len(".obj")] + "_atlas.png", grayscale=True)
-    return float((atlas > 0).mean())
-
-
 def card(out: str, repeats: int) -> int:
     from alicevision_tpu_torch import mesh as meshm
 
@@ -53,7 +49,9 @@ def card(out: str, repeats: int) -> int:
     print(smi, flush=True)
     work = tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT)
     try:
-        chip_smoke.make_posed_scene(work, n_views=8)
+        posed_sfm, _ = chip_smoke.make_posed_scene(work, n_views=8)
+        truth = chip_smoke.sfmdata.load(posed_sfm)
+        R_true, c_true = truth.pose_R[truth.view_pose], truth.pose_c[truth.view_pose]
         for k in range(repeats):
             run, logs = os.path.join(work, f"cli{k}"), os.path.join(work, f"logs{k}")
             os.makedirs(run)
@@ -62,9 +60,11 @@ def card(out: str, repeats: int) -> int:
                 res = chip_smoke.run_cli_process(argv, os.path.join(logs, name))
                 if res["rc"] != 0:
                     raise RuntimeError(f"{name} exited {res['rc']}")
+            s, Ra, t = chip_smoke._posed_ate(os.path.join(run, "sfm.sfm"), R_true, c_true)["alignment"]
             v, f = meshm.load_obj(os.path.join(run, "mesh_filtered.obj"))
-            print(json.dumps({"run": k, "atlas_fill": atlas_fill(os.path.join(run, "textured.obj")),
-                              "filtered_mesh": chip_smoke.mesh_box_stats(np.asarray(v), np.asarray(f))}), flush=True)
+            print(json.dumps({"run": k, **chip_smoke.atlas_fills(os.path.join(run, "textured.obj")),
+                              "filtered_mesh": chip_smoke.mesh_box_stats(np.asarray(v) @ (s * Ra).T + t,
+                                                                         np.asarray(f))}), flush=True)
             if k == 0:
                 dst = os.path.join(out, "cli_texturing_inputs")
                 os.makedirs(dst, exist_ok=True)
@@ -94,8 +94,8 @@ def reference(inputs: str) -> int:
         out = os.path.join(work, f"{pkg}.obj")
         if main([*argv, "--output", out, *extra]) != 0:
             raise RuntimeError(f"{pkg} texturing failed")
-        fills[pkg] = atlas_fill(out)
-    print(json.dumps({"atlas_fill": fills, "gate": chip_smoke.CLI_MIN_ATLAS_FILL}), flush=True)
+        fills[pkg] = chip_smoke.atlas_fills(out)
+    print(json.dumps({"fills": fills, "gate": chip_smoke.CLI_MIN_FOOTPRINT_FILL}), flush=True)
     shutil.rmtree(work, ignore_errors=True)
     return 0
 

@@ -3,7 +3,7 @@
 gates: the numbers to set them against, and the inputs the JAX reference
 needs to read the same scene.
 
-    python3 scripts/localization_phase_torch.py [--out DIR] [--databases N] [--seeds K]
+    python3 scripts/localization_phase_torch.py [--out DIR] [--databases N] [--seeds K] [--runs A,B]
 
 from the repository root, on a machine with a CUDA card. It runs the
 hard_scene phase's images path (`chip_smoke.run_hard_images`: 40 distorted
@@ -14,13 +14,13 @@ misses (`chip_smoke.localization_misses`, printed, not raised) and the
 `localization` row as one JSON line. With `--out`, DIR/localization_phase.json
 holds the row and DIR/localization_inputs/ the reconstruction with its
 feature ids (`database.sfm`) and, per view, only the features its
-observations name (renumbered; ~20 MB), which
+observations name (renumbered; ~13 MB), which
 `scripts/localization_reference.py --inputs DIR/localization_inputs` reads.
 
 With --seeds K, each cameraLocalization run of the phase is repeated with
 the CLI's loop for draws k = 0..K-1 (`chip_smoke.localization_sweep`: the
 vocabulary tree trained with seed k, the RANSAC generator seeded k; draw 0
-is the CLI's),
+is the CLI's; --runs picks the runs, all by default),
 and the right and wrong successes of each draw are printed (`seed_sweep`
 lines). With --databases N, the images path runs N
 times (incrementalSfm on the card is not deterministic, so each run gives
@@ -41,34 +41,10 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from alicevision_tpu_torch import sfmdata  # noqa: E402
 from alicevision_tpu_torch.utils.rendered import _ring_cameras  # noqa: E402
-
-
-def save_compact_inputs(db_sfm: str, feats: str, out: str) -> dict:
-    """`db_sfm` and the features its observations name, renumbered per
-    view, into `out` (database.sfm, features/<viewId>.feat.npz)."""
-    sc = sfmdata.load(db_sfm)
-    fdir = os.path.join(out, "features")
-    os.makedirs(fdir, exist_ok=True)
-    new_fid = np.zeros(sc.n_observations, np.int64)
-    kept = 0
-    for v in range(sc.n_views):
-        vid = int(sc.view_ids[v])
-        sel = np.nonzero(sc.obs_view == v)[0]
-        with np.load(os.path.join(feats, f"{vid}.feat.npz")) as z:
-            f = {k: z[k] for k in z.files}
-        used, inv = np.unique(sc.obs_feature[sel], return_inverse=True)
-        new_fid[sel] = inv
-        kept += len(used)
-        np.savez_compressed(os.path.join(fdir, f"{vid}.feat.npz"), **{k: a[used] for k, a in f.items()})
-    sc.obs_feature = new_fid
-    sfmdata.save(sc, os.path.join(out, "database.sfm"))
-    return {"views": int(sc.n_views), "observations": int(sc.n_observations), "features_kept": int(kept)}
 
 
 def main() -> int:
@@ -76,6 +52,8 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--databases", type=int, default=1, help="reconstructions to sweep (the phase runs on the first)")
     ap.add_argument("--seeds", type=int, default=0, help="RANSAC seeds a cameraLocalization run in the sweep")
+    ap.add_argument("--runs", default=",".join(chip_smoke.LOC_CAMERA_RUNS),
+                    help="comma-separated camera runs of the sweep (default all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
@@ -108,14 +86,14 @@ def main() -> int:
                                             os.path.join(loc, "database.sfm"))
             if args.seeds:
                 sweep = chip_smoke.localization_sweep(os.path.join(loc, "database.sfm"), feats, inputs, R_gt, c_gt, dev,
-                                                      args.seeds, runs=chip_smoke.LOC_CAMERA_RUNS)
+                                                      args.seeds, runs=args.runs.split(","))
                 print(f"seed_sweep {i} " + json.dumps(sweep), flush=True)
             if args.out:
                 os.makedirs(args.out, exist_ok=True)
                 if i == 0:
                     with open(os.path.join(args.out, "localization_phase.json"), "w") as f:
                         json.dump(row, f, indent=1)
-                kept = save_compact_inputs(os.path.join(loc, "database.sfm"), feats, os.path.join(
+                kept = chip_smoke.save_localization_inputs(os.path.join(loc, "database.sfm"), feats, os.path.join(
                     args.out, "localization_inputs" + (f"_{i}" if i else "")))
                 print(f"saved inputs {i}: " + json.dumps(kept), flush=True)
     finally:

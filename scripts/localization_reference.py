@@ -3,7 +3,8 @@
 the CPU: the numbers its gates are set from.
 
     python3 scripts/localization_reference.py --inputs DIR [--work DIR]
-        [--solver-batch N] [--marker-frames N] [--keys K] [--sweep-only] [--runs A,B]
+        [--solver-batch N] [--marker-frames N] [--keys K] [--first-key F] [--sweep-only]
+        [--runs A,B]
 
 DIR is `scripts/localization_phase_torch.py --out`'s localization_inputs/
 (the card's hard-scene reconstruction with feature ids, and the features
@@ -19,9 +20,9 @@ solvers on `chip_smoke.solver_samples` and the JAX marker path on
 minutes on 4 CPU threads, most of it JAX compiling its SIFT and RANSAC.
 
 With --keys K, each cameraLocalization run of the phase is repeated with
-the JAX CLI's loop for draws k = 0..K-1 (`key_sweep`: the vocabulary tree
-trained with seed k, RANSAC keys split from PRNGKey(k); draw 0 is the
-CLI's), and the right and wrong successes of each draw are printed, as
+the JAX CLI's loop for draws k = 0..K-1, or F..F+K-1 with --first-key F
+(`key_sweep`: the vocabulary tree trained with seed k, RANSAC keys split
+from PRNGKey(k); draw 0 is the CLI's), and the right and wrong successes of each draw are printed, as
 `scripts/localization_phase_torch.py --seeds` prints the port's;
 --sweep-only skips the rest, and --runs limits the sweep to those runs
 (chip_smoke.LOC_SWEEP_RUNS are the ones its K-draw gates read).
@@ -131,10 +132,10 @@ def jax_markers(work: str, frames: int) -> dict:
             "centre_err_max": float(np.linalg.norm(c_est - c_gt, axis=1).max())}
 
 
-def key_sweep(sfm: str, feats: str, inputs: dict, R_gt, c_gt, keys: int, runs=None) -> dict:
+def key_sweep(sfm: str, feats: str, inputs: dict, R_gt, c_gt, keys: int, runs=None, first: int = 0) -> dict:
     """The phase's cameraLocalization runs as the JAX CLI's loop
-    (`alicevision_tpu.pipeline.cli_ext._camera_localization`), for draws k
-    < keys: the tree of VoctreeLocalizer(seed=k), the key sequence split
+    (`alicevision_tpu.pipeline.cli_ext._camera_localization`), for draws
+    first <= k < first + keys: the tree of VoctreeLocalizer(seed=k), the key sequence split
     from PRNGKey(k); the LOC_2X runs read the scene scaled
     (`chip_smoke.scale_intrinsics`); `runs` picks runs (default all). The localizers' robust P3P is jitted for the sweep
     (the same function; eagerly each call takes seconds). Returns {run:
@@ -189,7 +190,7 @@ def key_sweep(sfm: str, feats: str, inputs: dict, R_gt, c_gt, keys: int, runs=No
                 qf.append((np.asarray(f.desc)[valid],
                            np.asarray(camm.remove_distortion(row.disto_kind, row.disto, p))))
             out[run] = []
-            for k in range(keys):
+            for k in range(first, first + keys):
                 key = jax.random.PRNGKey(k)
                 res = {}
                 for n, (desc, p) in zip(names, qf):
@@ -216,6 +217,7 @@ def main() -> int:
     ap.add_argument("--solver-batch", type=int, default=chip_smoke.LOC_SOLVER_BATCH)
     ap.add_argument("--marker-frames", type=int, default=chip_smoke.LOC_MARKER["frames"])
     ap.add_argument("--keys", type=int, default=0, help="PRNG keys a cameraLocalization run in the sweep")
+    ap.add_argument("--first-key", type=int, default=0, help="the sweep's first key (draws first .. first + K - 1)")
     ap.add_argument("--sweep-only", action="store_true", help="only the key sweep")
     ap.add_argument("--runs", default="", help="comma-separated camera runs of the sweep (default all)")
     args = ap.parse_args()
@@ -230,7 +232,7 @@ def main() -> int:
     chip_smoke._truth_scene(sfm, truth_sfm, R_gt, c_gt)
     print(f"inputs rendered in {time.perf_counter() - t0:.1f} s", flush=True)
     runs = [r for r in args.runs.split(",") if r]
-    sweep = key_sweep(sfm, feats, inputs, R_gt, c_gt, args.keys, runs) if args.keys else None
+    sweep = key_sweep(sfm, feats, inputs, R_gt, c_gt, args.keys, runs, args.first_key) if args.keys else None
     if args.sweep_only:
         print(json.dumps({"key_sweep": sweep, "seconds": time.perf_counter() - t0}), flush=True)
         return 0

@@ -5,9 +5,10 @@ functions on the CPU, on the samples where float32 loses.
 An H100's batched float32 eigh solved fewer of chip_smoke.py's hard-scene
 samples than the CPU's LAPACK (`solvers` step: F 0.598 against 0.841, H
 0.760 against 0.880, the 5-point agreeing with the CPU on 0.960), so a card
-forms and decomposes AᵀA in float64; the CPU keeps LAPACK's float32, as the
-JAX package computes. Here the card's route runs on the CPU
-(`normal_eigh_in_float64`) on `chip_smoke.eigh_site_samples`. On the
+forms and decomposes AᵀA in float64 (`numeric._normal_eigh64`); the CPU keeps
+LAPACK's float32, as the JAX package computes. Here the solvers take the
+card's route on the CPU (their `normal_eigh` patched to `_normal_eigh64`)
+on `chip_smoke.eigh_site_samples`. On the
 samples where the JAX function in float32 misses the truth (beyond
 `chip_smoke.EIGH_SITE_TOL`), the route is held to the JAX function
 evaluated in float64 (`jax.enable_x64`, scoped, on the same float32
@@ -28,7 +29,8 @@ import torch
 import chip_smoke
 from alicevision_tpu import multiview as jmv
 from alicevision_tpu_torch import multiview as mv
-from alicevision_tpu_torch.numeric import normal_eigh_in_float64
+from alicevision_tpu_torch import numeric
+from alicevision_tpu_torch.multiview import epipolar, five_point
 
 torch.set_num_threads(1)
 
@@ -84,15 +86,16 @@ def _site(name, smp):
 
 
 @pytest.mark.parametrize("name", ["essential_5pt", "fundamental_8pt", "homography_4pt"])
-def test_float64_route_matches_jax_float64_where_float32_loses(samples, name):
+def test_float64_route_matches_jax_float64_where_float32_loses(samples, name, monkeypatch):
     (a, b), jfn, fn, err, value = _site(name, samples)
     a32, b32 = a.astype(np.float32), b.astype(np.float32)
     j32 = jax.jit(jax.vmap(jfn))(jnp.asarray(a32), jnp.asarray(b32))
     with jax.enable_x64(True):
         j64 = jax.jit(jax.vmap(jfn))(jnp.asarray(a32, jnp.float64), jnp.asarray(b32, jnp.float64))
         j64 = jax.tree_util.tree_map(np.asarray, j64)
-    with normal_eigh_in_float64():
-        got = fn(torch.as_tensor(a32), torch.as_tensor(b32))
+    for module in (epipolar, five_point):
+        monkeypatch.setattr(module, "normal_eigh", numeric._normal_eigh64)
+    got = fn(torch.as_tensor(a32), torch.as_tensor(b32))
     got = jax.tree_util.tree_map(lambda x: x.numpy(), got) if isinstance(got, tuple) else got.numpy()
     tol = chip_smoke.EIGH_SITE_TOL[name]
     lose = err(j32) > tol
