@@ -2577,37 +2577,44 @@ LOC_MARKER = dict(frames=6, wh=(640, 480), focal_px=600.0, focal0=1.05, tags=9)
 # The runs whose counts depend on the draw are repeated in the phase's
 # process for LOC_SWEEP_SEEDS seeds of the tree and RANSAC
 # (`localization_sweep`, draw 0 the CLI's), and their counts gated on the
-# 8-draw totals, each at the JAX package's lowest 8-draw total. JAX's
-# readings: its CLI's loop (scripts/localization_reference.py --sweep-only,
-# CPU) on 7 card reconstructions saved by localization_phase_torch.py, keys
-# 0-7 on each, 8-31 on two and 8-15 on five: 18 blocks of 8 draws, every
-# one read, all in scripts/localization_k_draw_readings.json. Its lowest
-# totals: full resolution 14 (blocks 14-25), windows 9 (9-23), at 2x 3
-# (3-15), direct at 2x 23 (23-32); voctree at the halved defaults 0 (0-5).
-# The port's RNG streams are not JAX's (torch.Generator against PRNGKey), so
-# no block is the other package's draw; the totals spread with the draw and
-# with the reconstruction alike in both packages. On the same 7
-# reconstructions and keys 0-7 the port on the card sums 139, 103, 67 and
-# 187 right against JAX's 138, 97, 60 and 187; over 32 draws on two of
-# them the port on the CPU reads 83, 78 (full), 62, 49 (windows), 46, 35
-# (2x), 128, 92 (direct 2x) against JAX's 82, 79, 58, 57, 48, 36, 128, 93.
-# Full resolution's single-draw gate was 2, the windows' 1: draw 0 read 0
-# on a sound reconstruction. Voctree at the halved defaults keeps its gate
-# of 0 and the 2x runs carry the defaults' check. Direct at full
-# resolution and on the windows read 6-7 in every draw in both packages (4
-# card reconstructions x 8 draws): they keep their single-draw gates.
-LOC_SWEEP_SEEDS = 8
+# K-draw totals. Each gate is the LOC_K_ALPHA quantile of the K-draw total
+# of a tree that localizes as the JAX package does, whatever reconstruction
+# the card gives the run (scripts/localization_gates_reference.py, from
+# JAX's draws in scripts/localization_k_draw_readings.json: its CLI's loop,
+# scripts/localization_reference.py --sweep-only on the CPU, 168 draws on
+# 10 card reconstructions): full resolution 57 of 256, windows 38, 2x 9,
+# direct at 2x 64 (K times the fewest JAX read in one draw, 2: its spread is
+# between reconstructions, 2.91-4.88 a draw, skewed upwards), voctree at
+# the halved defaults 1. A tree that loses a quarter of its right queries
+# falls under the first two in 44 % and 19 % of its runs, a half in 99.8 %
+# and 87 % (the script's thinned draws). 8-draw totals spread 10-27 (full)
+# and 9-24 (windows) over 32 draws on one reconstruction (the port on the
+# CPU; JAX 15-25 and 10-22 on another), so the earlier gates at JAX's
+# lowest 8-draw total of 18 blocks read (14, 9, 3, 23) failed a sound tree
+# in about one run in ten (3.4, 3.1, 1.5 and 1.7 % of the script's draws);
+# these fail one in 200 (0.17, 0.19, 0.01, 0 and, at the defaults, 0.13 %).
+# Direct at full resolution and on the windows read 6-7 in every draw in
+# both packages (4 card reconstructions x 8 draws): they keep their
+# single-draw gates.
+LOC_SWEEP_SEEDS = 32
+LOC_K_ALPHA = 1e-3
 LOC_SWEEP_RUNS = ("voctree", "voctree_full", "voctree_crop", "voctree_2x", "direct_2x")
 LOC_GATES = dict(
     # right, of LOC_QUERIES, in the CLI's draw
     localized={"voctree": 0, "direct": 0, "direct_full": 6, "direct_crop": 6},
     # right over the LOC_SWEEP_SEEDS draws of `localization_sweep`, of
     # LOC_QUERIES a draw
-    localized_k={"voctree": 0, "voctree_full": 14, "voctree_crop": 9, "voctree_2x": 3, "direct_2x": 23},
+    localized_k={"voctree": 1, "voctree_full": 57, "voctree_crop": 38, "voctree_2x": 9, "direct_2x": 64},
     rot_deg=0.5, centre_frac=0.01,  # a query localized right: centre error over the ring's radius
     wrong=0,  # successes that miss the place (wrong_rot_deg or wrong_centre_frac off), of a run
     wrong_rot_deg=5.0, wrong_centre_frac=0.05,
-    rig_frames={"joint": 7, "average": 7}, rig_rot_deg=1.0, rig_centre_frac=0.02,
+    # a rig frame right within these at a reconstruction's camera tilt up to
+    # rig_tilt_deg, and within them scaled by tilt / rig_tilt_deg above it
+    # (`rig_tolerances`): on a 4.34 deg card reconstruction the JAX chain
+    # has 6 (joint) and 5 (average) of 8 within 1 deg and 2 %, 7 and 7
+    # within the scaled 1.55 deg and 3.1 %; the card's reconstructions tilt
+    # 0.54-4.34 deg from run to run
+    rig_frames={"joint": 7, "average": 7}, rig_rot_deg=1.0, rig_centre_frac=0.02, rig_tilt_deg=2.8,
     subpose_rot_deg=0.2, subpose_centre=0.01,
     solver_recovered=0.98, solver_agree=0.98, linear_rot_deg=0.01,
     marker_focal=0.01, marker_rms_px=0.5,
@@ -3500,12 +3507,25 @@ def localization_sweep(db_sfm: str, feats: str, inputs: dict, R_gt, c_gt, dev, s
     return out
 
 
+def rig_tolerances(tilt_deg: float) -> tuple:
+    """(deg, fraction of the radius) within which a rig frame is right on a
+    reconstruction whose cameras share a tilt of tilt_deg (`_database_frame`).
+    rigCalibration calibrates the sub-pose in the truth's frame, while the
+    reconstruction's cameras see camera 1 at the tilted sub-pose C R_s Cᵀ:
+    the joint solve parts from the truth in proportion to the tilt in both
+    packages (PERF.md §6), so the tolerances grow with it above
+    LOC_GATES["rig_tilt_deg"], the tilt they were set on."""
+    g = LOC_GATES
+    s = max(1.0, tilt_deg / g["rig_tilt_deg"])
+    return g["rig_rot_deg"] * s, g["rig_centre_frac"] * s
+
+
 def localization_misses(row: dict) -> list:
     """The phase's gates (LOC_GATES) against its row."""
     g, rep, bad = LOC_GATES, row["report"], []
 
-    for kind, wants, rot, cen in (("camera", g["localized"], g["rot_deg"], g["centre_frac"]),
-                                  ("rig", g["rig_frames"], g["rig_rot_deg"], g["rig_centre_frac"])):
+    for kind, wants, (rot, cen) in (("camera", g["localized"], (g["rot_deg"], g["centre_frac"])),
+                                    ("rig", g["rig_frames"], rig_tolerances(rep["database_tilt_deg"]))):
         for method, want in wants.items():
             r = rep[f"{kind}_{method}"]
             right, wrong = right_wrong(r, rot, cen)

@@ -188,6 +188,26 @@ def test_localization_k_draw_gates_report_planted_faults(phase, monkeypatch):
     assert planted(wrong_in_one_draw) == {f"camera {m}"}
 
 
+def test_rig_gate_reads_the_tilt(phase, monkeypatch):
+    """Rig frames 1.2 times the rig tolerance off are named on an untilted
+    reconstruction and pass on one tilted 1.5 times rig_tilt_deg."""
+    _, row = phase
+    g = chip_smoke.LOC_GATES
+    monkeypatch.setitem(g["rig_frames"], "joint", N_QUERIES)
+    base = {b.split(":")[0] for b in chip_smoke.localization_misses(row)}
+    assert "rig joint" not in base
+
+    def planted(tilt):
+        bad = copy.deepcopy(row)
+        bad["report"]["database_tilt_deg"] = tilt
+        r = bad["report"]["rig_joint"]
+        r["centre_err_frac"] = [1.2 * g["rig_centre_frac"]] * len(r["centre_err_frac"])
+        return {b.split(":")[0] for b in chip_smoke.localization_misses(bad)} - base
+
+    assert planted(0.0) == {"rig joint"}
+    assert planted(1.5 * g["rig_tilt_deg"]) == set()
+
+
 def test_camera_localization_equals_module(db, phase):
     """The CLI's first direct query is `localize_image` with a generator
     seeded 0 on the same features."""

@@ -64,4 +64,4 @@ def test_chip_smoke_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device exists")
     with pytest.raises(RuntimeError, match="CUDA"):
-        chip_smoke.main()
+        chip_smoke.main([])
