@@ -286,11 +286,30 @@ def _grid(G: int, device):
     return torch.meshgrid(g, g, indexing="ij")  # gy, gx
 
 
-def _gather_rotated_patch(stack, cx, cy, spacing, angle, G, lvl):
+def _one_image(fn, img, coords, G=None):
+    """`fn` on one (H, W) image: the coordinate tensors broadcast to a
+    common shape (...), run as a (1, 1, H, W) stack at level 0, and the
+    result comes back as (...) + fn's trailing dimensions."""
+    coords = torch.broadcast_tensors(
+        *(torch.as_tensor(c, dtype=torch.float32, device=img.device) for c in coords))
+    shape = coords[0].shape
+    flat = [c.reshape(1, -1) for c in coords]
+    lvl = torch.zeros(flat[0].shape, dtype=torch.int64, device=img.device)
+    out = fn(img[None, None], *flat, *(() if G is None else (G,)), lvl)
+    return out.reshape(shape + out.shape[2:])
+
+
+def _gather_rotated_patch(stack, cx, cy, spacing, angle, G, lvl=None):
     """Resample a (G+2)x(G+2) grid centered at (cx, cy), rotated by angle,
     with the given spacing (octave pixels per grid step), bilinearly, on
     level `lvl` of the (B, L, H, W) Gaussian stack. cx, cy, spacing, angle,
-    lvl: (B, K). Returns (B, K, G+2, G+2)."""
+    lvl: (B, K). Returns (B, K, G+2, G+2).
+
+    With `lvl` None, `stack` is one (H, W) image and cx, cy, spacing, angle
+    broadcast to any common shape (...): returns (..., G+2, G+2), the JAX
+    package's single-image form."""
+    if lvl is None:
+        return _one_image(_gather_rotated_patch, stack, (cx, cy, spacing, angle), G)
     gy, gx = _grid(G, stack.device)
     ca, sa = torch.cos(angle)[..., None, None], torch.sin(angle)[..., None, None]
     sx = spacing[..., None, None] * (ca * gx - sa * gy) + cx[..., None, None]
@@ -310,9 +329,12 @@ def _gather_rotated_patch(stack, cx, cy, spacing, angle, G, lvl):
     )
 
 
-def _orientation(stack, cx, cy, sigma_oct, lvl):
+def _orientation(stack, cx, cy, sigma_oct, lvl=None):
     """Dominant gradient orientation (VLFeat-style 36-bin histogram) of
-    each (B, K) keypoint."""
+    each (B, K) keypoint; with `lvl` None, of keypoints of any shape (...)
+    on one (H, W) image (see `_gather_rotated_patch`)."""
+    if lvl is None:
+        return _one_image(_orientation, stack, (cx, cy, sigma_oct))
     G = 16
     win = 3.0 * 1.5 * sigma_oct  # window radius
     spacing = 2.0 * win / G

@@ -1,3 +1,7 @@
-from . import filtering, io
+from . import cache, colorspace, feeds, filtering, io, processing
+from .cache import ImageCache
 
-__all__ = ["filtering", "io"]
+__all__ = [
+    "ImageCache", "cache", "colorspace", "feeds", "filtering", "io",
+    "processing",
+]

@@ -6,6 +6,8 @@ from .descriptor_matching import (
     match_cascade_hash,
     matches_to_pairs,
 )
+from .hgrowing import HGrowingParams, filter_matches_hgrowing, grow_from_seeds
+from .photometric_filter import photometric_filter
 from . import voctree
 
 __all__ = [
@@ -15,5 +17,9 @@ __all__ = [
     "match_bruteforce",
     "match_cascade_hash",
     "matches_to_pairs",
+    "photometric_filter",
     "voctree",
+    "HGrowingParams",
+    "filter_matches_hgrowing",
+    "grow_from_seeds",
 ]

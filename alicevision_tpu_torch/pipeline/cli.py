@@ -1134,9 +1134,93 @@ def _ldr_to_hdr_merge(args):
         write_image(out, merged.cpu().numpy())
 
 
-# The subcommands of cli.py that run; the others (imageSegmentation,
-# keyframeSelection, the lidar and calibration tools, ...) exit 1 naming
-# ROADMAP item 13.
+def _keyframe_selection(args):
+    from ..image.io import read_image
+    from ..keyframe import select_keyframes_regular, select_keyframes_smart
+
+    if os.path.isdir(args.inputFolder):
+        files = sorted(
+            f for f in os.listdir(args.inputFolder) if f.lower().endswith((".jpg", ".png", ".jpeg", ".npy"))
+        )
+
+        def load():
+            return [read_image(os.path.join(args.inputFolder, f), grayscale=True) for f in files]
+    else:
+        # video input (the reference's mediaPaths accept videos too,
+        # ref: dataio/VideoFeed.cpp behind main_keyframeSelection.cpp)
+        from ..image.feeds import video_feed
+
+        frames_v, files = [], []
+        for img, idx in video_feed(args.inputFolder, grayscale=True):
+            frames_v.append(img)
+            files.append(f"frame_{idx:06d}")
+
+        def load():
+            return frames_v
+    if args.method == "regular":
+        sel = select_keyframes_regular(len(files), args.step)
+    else:
+        sel = select_keyframes_smart(load(), device=args.dev)
+    with open(args.output, "w") as f:
+        for i in sel:
+            f.write(files[i] + "\n")
+
+
+def _voctree_creation(args):
+    """The vocabulary tree of the views' descriptors; its k-means seeds are
+    drawn from a generator seeded 0 on the device (the JAX package draws
+    from PRNGKey(0))."""
+    import numpy as np
+    import torch
+
+    from .. import sfmdata
+    from ..matching import voctree as vt
+    from . import stages as st
+
+    sc = sfmdata.load(args.input)
+    descs = []
+    for v in range(sc.n_views):
+        f = st.load_features(args.features, int(sc.view_ids[v]))
+        descs.append(f["desc"][f["valid"]])
+    train = torch.from_numpy(np.concatenate(descs)).to(args.dev)
+    tree = vt.build_voctree(torch.Generator(device=args.dev).manual_seed(0), train, n_children=args.branching,
+                            n_levels=args.levels)
+    np.savez_compressed(args.output, centers=tree.centers.cpu().numpy(), n_children=args.branching,
+                        n_levels=args.levels)
+
+
+def _compute_uncertainty(args):
+    import numpy as np
+    import torch
+
+    from .. import sfmdata
+    from ..geometry.rotations import mat_to_quat
+    from ..sfm import ba as ba_mod
+
+    sc = sfmdata.load(args.input)
+    posed = sc.valid_views()
+    R = torch.as_tensor(sc.pose_R[sc.view_pose[posed]], dtype=torch.float32, device=args.dev)
+    cam_fixed = np.zeros(len(posed), bool)
+    cam_fixed[:1] = True  # gauge (see pose_covariances note)
+    problem = ba_mod.build_problem(
+        mat_to_quat(R),
+        sc.pose_c[sc.view_pose[posed]],
+        sc.points,
+        sc.intrinsics_table(device=args.dev),
+        sc.obs_landmark,
+        np.searchsorted(posed, sc.obs_view),
+        sc.view_intrinsic[sc.obs_view],
+        sc.obs_uv,
+        cam_fixed=cam_fixed,
+        device=args.dev,
+    )
+    cov = ba_mod.pose_covariances(problem, problem.cam_q, problem.cam_c, problem.points).cpu().numpy()
+    np.savez_compressed(args.output, view_ids=sc.view_ids[posed], covariances=cov)
+    print(json.dumps({"mean_trace": float(np.trace(cov, axis1=1, axis2=2).mean())}))
+
+
+# The subcommands of cli.py that run; the others (imageSegmentation and the
+# lidar tools) exit 1 naming ROADMAP item 13.
 _HANDLERS = {
     "cameraInit": _camera_init,
     "featureExtraction": _feature_extraction,
@@ -1181,6 +1265,9 @@ _HANDLERS = {
     "ldrToHdrMerge": _ldr_to_hdr_merge,
     "nodalSfM": _rotation_sfm,
     "checkerboardCalibration": _checkerboard_calibration,
+    "keyframeSelection": _keyframe_selection,
+    "voctreeCreation": _voctree_creation,
+    "computeUncertainty": _compute_uncertainty,
 }
 
 

@@ -478,7 +478,29 @@ def _setup_export_keypoints(p):
     p.add_argument("--output", required=True, help="folder of SVGs")
 
 
-command("exportKeypoints", _setup_export_keypoints)(_not_ported)
+@command("exportKeypoints", _setup_export_keypoints)
+def _export_keypoints(args):
+    """ref: src/software/export/main_exportKeypoints.cpp"""
+    from .. import sfmdata
+    from ..utils.svg import write_keypoints_svg
+    from .stages import load_features
+
+    sc = sfmdata.load(args.input)
+    os.makedirs(args.output, exist_ok=True)
+    n = 0
+    for v in range(sc.n_views):
+        try:
+            f = load_features(args.features, int(sc.view_ids[v]))
+        except FileNotFoundError:
+            continue
+        write_keypoints_svg(
+            os.path.join(args.output, f"{int(sc.view_ids[v])}.svg"),
+            sc.view_sizes[v], f["xy"][f["valid"]],
+            scale=f.get("scale", [2.0] * len(f["xy"])),
+            image_path=sc.view_paths[v] or None,
+        )
+        n += 1
+    print(json.dumps({"views": n}))
 
 
 def _setup_export_matches(p):
@@ -488,7 +510,35 @@ def _setup_export_matches(p):
     p.add_argument("--output", required=True, help="folder of SVGs")
 
 
-command("exportMatches", _setup_export_matches)(_not_ported)
+@command("exportMatches", _setup_export_matches)
+def _export_matches(args):
+    """ref: src/software/export/main_exportMatches.cpp"""
+    from .. import sfmdata
+    from ..utils.svg import write_matches_svg
+    from .stages import load_features, load_matches
+
+    sc = sfmdata.load(args.input)
+    os.makedirs(args.output, exist_ok=True)
+    feats = {}
+
+    def get(v):
+        if v not in feats:
+            feats[v] = load_features(args.features, int(sc.view_ids[v]))
+        return feats[v]
+
+    n = 0
+    for (i, j), m in load_matches(args.matches).items():
+        if not len(m):
+            continue
+        fi, fj = get(i), get(j)
+        write_matches_svg(
+            os.path.join(args.output, f"{int(sc.view_ids[i])}_{int(sc.view_ids[j])}.svg"),
+            sc.view_sizes[i], sc.view_sizes[j],
+            fi["xy"][m[:, 0]], fj["xy"][m[:, 1]],
+            image1=sc.view_paths[i] or None, image2=sc.view_paths[j] or None,
+        )
+        n += 1
+    print(json.dumps({"pairs": n}))
 
 
 def _setup_export_tracks(p):
@@ -499,7 +549,35 @@ def _setup_export_tracks(p):
     p.add_argument("--maxTracks", type=int, default=500)
 
 
-command("exportTracks", _setup_export_tracks)(_not_ported)
+@command("exportTracks", _setup_export_tracks)
+def _export_tracks(args):
+    """ref: src/software/export/main_exportTracks.cpp"""
+    import numpy as np
+
+    from .. import sfmdata
+    from ..tracks.builder import Tracks
+    from ..utils.svg import write_tracks_svg
+    from .stages import load_features
+
+    sc = sfmdata.load(args.input)
+    with np.load(args.tracks) as z:
+        tr = Tracks(z["track_ids"], z["views"], z["features"], int(z["n_tracks"]))
+    feats = {v: load_features(args.features, int(sc.view_ids[v])) for v in range(sc.n_views)}
+    polylines = []
+    order = np.argsort(tr.track_ids, kind="stable")
+    tids = tr.track_ids[order]
+    vs = tr.views[order]
+    fs = tr.features[order]
+    starts = np.searchsorted(tids, np.unique(tids))
+    bounds = np.append(starts, len(tids))
+    for k in range(min(args.maxTracks, len(starts))):
+        sl = slice(bounds[k], bounds[k + 1])
+        line = [feats[int(v)]["xy"][int(f)] for v, f in zip(vs[sl], fs[sl])]
+        if len(line) >= 2:
+            polylines.append(line)
+    _ensure_parent(args.output)
+    write_tracks_svg(args.output, sc.view_sizes[0], polylines)
+    print(json.dumps({"tracks": len(polylines)}))
 
 
 def _setup_import_middlebury(p):
@@ -508,7 +586,15 @@ def _setup_import_middlebury(p):
     p.add_argument("--output", required=True, help=".sfm")
 
 
-command("importMiddlebury", _setup_import_middlebury)(_not_ported)
+@command("importMiddlebury", _setup_import_middlebury)
+def _import_middlebury(args):
+    """ref: src/software/pipeline/main_importMiddlebury.cpp"""
+    from .. import sfmdata
+    from ..sfmdata.middlebury import import_middlebury
+
+    sc = import_middlebury(args.input, args.imagesFolder)
+    sfmdata.save(sc, args.output)
+    print(json.dumps({"views": sc.n_views}))
 
 
 def _setup_sample_scene(p):
@@ -545,14 +631,56 @@ def _setup_voctree_query(p):
     p.add_argument("--nbNeighbors", type=int, default=10)
 
 
-command("voctreeQueryUtility", _setup_voctree_query)(_not_ported)
+@command("voctreeQueryUtility", _setup_voctree_query)
+def _voctree_query(args):
+    """ref: src/software/utils/main_voctreeQueryUtility.cpp"""
+    import numpy as np
+    import torch
+
+    from .. import sfmdata
+    from ..matching import voctree as vt
+    from .stages import load_features
+
+    sc = sfmdata.load(args.input)
+    with np.load(args.tree) as z:
+        tree = vt.VocTree(centers=torch.from_numpy(z["centers"]).to(args.dev), n_children=int(z["n_children"]),
+                          n_levels=int(z["n_levels"]))
+    bows = []
+    for v in range(sc.n_views):
+        f = load_features(args.features, int(sc.view_ids[v]))
+        bows.append(vt.bow_vector(tree, torch.from_numpy(f["desc"]).to(args.dev),
+                                  torch.from_numpy(f["valid"]).to(args.dev)))
+    db = vt.build_database(tree, torch.stack(bows))
+    pairs = vt.query_pairs(db, n_neighbors=args.nbNeighbors)
+    if args.output:
+        _ensure_parent(args.output)
+        with open(args.output, "w") as f:
+            for i, j in pairs:
+                f.write(f"{i} {j}\n")
+    print(json.dumps({"pairs": int(len(pairs))}))
 
 
 def _setup_voctree_stats(p):
     p.add_argument("--tree", required=True)
 
 
-command("voctreeStatistics", _setup_voctree_stats)(_not_ported)
+@command("voctreeStatistics", _setup_voctree_stats)
+def _voctree_statistics(args):
+    """ref: src/software/utils/main_voctreeStatistics.cpp (host numpy)"""
+    import numpy as np
+
+    with np.load(args.tree) as z:
+        centers = z["centers"]
+        k = int(z["n_children"])
+        levels = int(z["n_levels"])
+    print(json.dumps({
+        "levels": levels,
+        "branching": k,
+        "leaves": int(k ** levels),
+        "nodes_per_level": int(centers.shape[1]),
+        "descriptor_dim": int(centers.shape[-1]),
+        "mean_center_norm": float(np.linalg.norm(centers, axis=-1).mean()),
+    }))
 
 
 def _setup_depth_render(p):
@@ -1619,7 +1747,29 @@ def _setup_export_mvstex(p):
     p.add_argument("--output", required=True, help="output folder")
 
 
-command("exportMVSTexturing", _setup_export_mvstex)(_not_ported)
+@command("exportMVSTexturing", _setup_export_mvstex)
+def _export_mvs_texturing(args):
+    """MVS-Texturing (mvs-tex) camera format: one .cam per view
+    ('tx ty tz R00..R22' / 'f d0 d1 paspect ppx ppy', normalized)
+    (ref: src/software/export/main_exportMVSTexturing.cpp)."""
+    from .. import sfmdata
+
+    sc = sfmdata.load(args.input)
+    os.makedirs(args.output, exist_ok=True)
+    n = 0
+    for v in sc.valid_views():
+        K, R, c = sc.camera_matrices(v)
+        t = -R @ c
+        w, h = int(sc.view_sizes[v, 0]), int(sc.view_sizes[v, 1])
+        f_norm = K[0, 0] / max(w, h)
+        ppx, ppy = K[0, 2] / w, K[1, 2] / h
+        paspect = K[1, 1] / K[0, 0]
+        path = os.path.join(args.output, f"{int(sc.view_ids[v])}.cam")
+        with open(path, "w") as fo:
+            fo.write(f"{t[0]} {t[1]} {t[2]} " + " ".join(str(x) for x in R.reshape(-1)) + "\n")
+            fo.write(f"{f_norm} 0 0 {paspect} {ppx} {ppy}\n")
+        n += 1
+    print(json.dumps({"cameras": n}))
 
 
 def _setup_export_matlab(p):
@@ -1627,7 +1777,28 @@ def _setup_export_matlab(p):
     p.add_argument("--output", required=True, help="output folder")
 
 
-command("exportMatlab", _setup_export_matlab)(_not_ported)
+@command("exportMatlab", _setup_export_matlab)
+def _export_matlab(args):
+    """Per-view K/R/t text files loadable from Matlab/Octave
+    (ref: src/software/export/main_exportMatlab.cpp)."""
+    from .. import sfmdata
+
+    sc = sfmdata.load(args.input)
+    os.makedirs(args.output, exist_ok=True)
+    n = 0
+    for v in sc.valid_views():
+        K, R, c = sc.camera_matrices(v)
+        t = -R @ c
+        vid = int(sc.view_ids[v])
+        for name, arr in (("K", K), ("R", R), ("t", t.reshape(1, 3))):
+            with open(os.path.join(args.output, f"{vid}_{name}.txt"), "w") as fo:
+                for row in arr:
+                    fo.write(" ".join(f"{x:.12g}" for x in row) + "\n")
+        n += 1
+    # one loader script
+    with open(os.path.join(args.output, "load_scene.m"), "w") as fo:
+        fo.write("% per-view K/R/t text files; t = -R*c (world->cam)\n")
+    print(json.dumps({"cameras": n}))
 
 
 def _setup_export_mmaya(p):
@@ -1636,4 +1807,32 @@ def _setup_export_mmaya(p):
     p.add_argument("--images", default=None, help="undistorted images folder")
 
 
-command("exportMeshroomMaya", _setup_export_mmaya)(_not_ported)
+@command("exportMeshroomMaya", _setup_export_mmaya)
+def _export_meshroom_maya(args):
+    """MeshroomMaya project folder: native-Alembic scene + point cloud +
+    per-view cameras + image list
+    (ref: src/software/export/main_exportMeshroomMaya.cpp)."""
+    import shutil
+
+    from .. import sfmdata
+
+    sc = sfmdata.load(args.input)
+    os.makedirs(args.output, exist_ok=True)
+    sfmdata.save(sc, os.path.join(args.output, "scene.abc"))
+    sfmdata.save_ply(sc, os.path.join(args.output, "pointCloud.ply"))
+    cams = {}
+    for v in sc.valid_views():
+        K, R, c = sc.camera_matrices(v)
+        cams[int(sc.view_ids[v])] = {
+            "K": K.tolist(), "R": R.tolist(), "c": c.tolist(),
+            "image": os.path.basename(sc.view_paths[v] or ""),
+            "size": [int(x) for x in sc.view_sizes[v]],
+        }
+    with open(os.path.join(args.output, "cameras.json"), "w") as f:
+        json.dump(cams, f, indent=1)
+    if args.images and os.path.isdir(args.images):
+        dst = os.path.join(args.output, "undistorted")
+        os.makedirs(dst, exist_ok=True)
+        for fname in os.listdir(args.images):
+            shutil.copy(os.path.join(args.images, fname), dst)
+    print(json.dumps({"cameras": len(cams)}))

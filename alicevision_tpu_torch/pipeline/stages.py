@@ -121,8 +121,23 @@ _BATCH = 8
 extraction_host_copies = 0
 
 
-def _not_ported(what: str, queue: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue {queue})")
+def _save_akaze(f, chunk, sc, scales, output_folder) -> None:
+    """Write a batch's AKAZE features, float32 descriptors as the JAX stage
+    writes them (MSURF is signed; MLDB bits stay 0/1 floats): one
+    device-to-host copy a field."""
+    global extraction_host_copies
+    xy, scale, ori, resp, desc, valid = (a.cpu().numpy() for a in f)
+    extraction_host_copies += 1
+    for g, v in enumerate(chunk):
+        np.savez_compressed(
+            os.path.join(output_folder, f"{int(sc.view_ids[v])}.feat.npz"),
+            xy=xy[g] / scales[v],
+            scale=scale[g] / scales[v],
+            orientation=ori[g],
+            response=resp[g],
+            desc=desc[g],
+            valid=valid[g],
+        )
 
 
 def feature_extraction(
@@ -136,13 +151,15 @@ def feature_extraction(
     describer_types: str = "sift",
     device="cuda",
 ) -> None:
-    """SIFT features per view -> <viewId>.feat.npz, plus
+    """Features per view -> <viewId>.feat.npz, plus
     <viewId>.<marker>.npz for the marker describers.
 
-    describer_types is a comma list from {sift, dspsift, tag16h5, cctag3}
-    ("dspsift" selects domain-size-pooled descriptors, the reference's
-    default describer; the markers are detected on the host,
-    `features/markers.py`); akaze and akaze_mldb raise NotImplementedError.
+    describer_types is a comma list from {sift, dspsift, akaze, akaze_mldb,
+    tag16h5, cctag3} ("dspsift" selects domain-size-pooled descriptors, the
+    reference's default describer; akaze / akaze_mldb select AKAZE with
+    MSURF / MLDB descriptors when no SIFT describer is listed, and keep them
+    float32 on disk; the markers are detected on the host,
+    `features/markers.py`).
     range_start/range_size mirror the reference's chunked farm runs
     (main_featureExtraction.cpp --rangeStart/--rangeSize). Images larger
     than `downscale_to` are resized (OpenCV's INTER_LINEAR, on the device)
@@ -150,22 +167,22 @@ def feature_extraction(
     describer `_BATCH` at a time, and each batch's features come back to
     the host in one copy."""
     global extraction_host_copies
-    from ..features import sift
+    from ..features import akaze, sift
 
     dev = resolve_device(device)
     types = [t.strip() for t in describer_types.split(",") if t.strip()]
-    for t in types:
-        if t in ("akaze", "akaze_mldb"):
-            _not_ported(f"describer {t!r} (features/akaze.py)", "13, front-end extras")
     sc = sfmdata.load(input_sfm)
     _ensure_dir(output_folder)
     end = sc.n_views if range_size < 0 else min(sc.n_views, range_start + range_size)
     dsp = dsp or ("dspsift" in types)
     with_sift = "sift" in types or "dspsift" in types
+    # as the JAX stage: AKAZE only when no SIFT describer is listed
+    with_akaze = not with_sift and ("akaze" in types or "akaze_mldb" in types)
     markers = [m for m in ("tag16h5", "cctag3") if m in types]
-    if not (with_sift or markers):
+    if not (with_sift or with_akaze or markers):
         return
     cfg = sift.SiftConfig(max_keypoints=max_keypoints, dsp=dsp, n_octaves=4)
+    acfg = akaze.AkazeConfig(max_keypoints=max_keypoints, descriptor="mldb" if "akaze_mldb" in types else "msurf")
 
     # load pending views, record per-view rescale factors
     pending, imgs, scales = [], {}, {}
@@ -182,7 +199,7 @@ def feature_extraction(
     for v in pending:
         by_shape.setdefault(imgs[v].shape, []).append(v)
     extraction_host_copies = 0
-    for (H, W), vs in by_shape.items() if with_sift else ():
+    for (H, W), vs in by_shape.items() if with_sift or with_akaze else ():
         scale = scales[vs[0]]
         size = (int(W * scale), int(H * scale))
         for s in range(0, len(vs), _BATCH):
@@ -190,6 +207,9 @@ def feature_extraction(
             stack = torch.from_numpy(np.stack([imgs[v] for v in chunk])).to(dev)
             if scale != 1.0:
                 stack = _resize_bilinear(stack, size)
+            if with_akaze:
+                _save_akaze(akaze.extract(stack, acfg), chunk, sc, scales, output_folder)
+                continue
             f = sift.extract(stack, cfg)
             meta = torch.stack(
                 [f.xy[..., 0], f.xy[..., 1], f.scale, f.orientation, f.response, f.valid.to(torch.float32)],
@@ -329,7 +349,9 @@ def feature_matching(
 ) -> None:
     """Top-2 ratio matching of every pair, then AC-RANSAC F filtering
     ("essential" takes the F filter too, as in the reference package;
-    "none" keeps the photometric matches) -> matches.npz.
+    "homography_growing" keeps the matches of the grown planes,
+    `matching/hgrowing.py`; "none" keeps the photometric matches) ->
+    matches.npz.
 
     Pairs go through the matcher `_BATCH` at a time as one batched top-2
     product over the stacked (V, N, 128) descriptor table, and through
@@ -339,8 +361,6 @@ def feature_matching(
     from .. import robust
     from ..matching import descriptor_matching as dm
 
-    if geometric == "homography_growing":
-        _not_ported("geometric='homography_growing' (matching/hgrowing.py)", "13, front-end extras")
     dev = resolve_device(device)
     sc = sfmdata.load(input_sfm)
     pairs = load_pairs(pairs_file)
@@ -394,6 +414,20 @@ def feature_matching(
         pm = pm_all[(i, j)]
         if len(pm) < 8 or geometric == "none":
             out[f"{i}_{j}"] = pm
+            continue
+        if geometric == "homography_growing":
+            # multi-plane HGrowing filter, one pair a call (ref:
+            # matchingImageCollection/GeometricFilterMatrix_HGrowing.cpp:107-190)
+            from ..matching.hgrowing import filter_matches_hgrowing
+
+            fi, fj = get(i), get(j)
+            _, _, inlier = filter_matches_hgrowing(
+                fi["xy"][pm[:, 0]], fj["xy"][pm[:, 1]],
+                fi["scale"][pm[:, 0]], fj["scale"][pm[:, 1]],
+                fi["orientation"][pm[:, 0]], fj["orientation"][pm[:, 1]],
+                device=dev,
+            )
+            out[f"{i}_{j}"] = pm[inlier]
             continue
         w, h = float(sc.view_sizes[i, 0]), float(sc.view_sizes[i, 1])
         todo_geo.setdefault((w, h), []).append((i, j, pm))

@@ -435,19 +435,15 @@ def save_baf(scene: SfMData, path: str) -> None:
             f.write(f"{scene.view_paths[v]} {iid} {pid}\n")
 
 
-_LATER = {
-    ".abc": "Alembic scenes (sfmdata/alembic.py) are ported in a later slice "
-    "(ROADMAP queue 13, auxiliary IO)",
-}
-
-
 def load(path: str) -> SfMData:
     """Extension dispatch (ref: sfmDataIO/sfmDataIO.cpp:114-170)."""
     ext = os.path.splitext(path)[1].lower()
     if ext in (".sfm", ".json"):
         return load_sfm(path)
-    if ext in _LATER:
-        raise NotImplementedError(_LATER[ext])
+    if ext == ".abc":
+        from .alembic import load_abc
+
+        return load_abc(path)
     raise ValueError(f"unsupported scene format: {ext}")
 
 
@@ -459,7 +455,9 @@ def save(scene: SfMData, path: str) -> None:
         save_ply(scene, path)
     elif ext == ".baf":
         save_baf(scene, path)
-    elif ext in _LATER:
-        raise NotImplementedError(_LATER[ext])
+    elif ext == ".abc":
+        from .alembic import save_abc
+
+        save_abc(scene, path)
     else:
         raise ValueError(f"unsupported scene format: {ext}")

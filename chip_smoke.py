@@ -145,10 +145,17 @@ toolkit (`nvcc`). It
    the 13 calibration, distortion, chart and photometric subcommands in
    this process, gated on the truth at the JAX chain's readings
    (CAL_GATES), Zhang's K and the normals held to the CPU; no SGM launch;
+10e. the `extras` phase: AKAZE and AKAZE-MLDB extraction and F-filtered
+   matching, the homography-growing filter and K-VLD / the photometric
+   filter on the dense scene's views and the `cli` phase's features,
+   keyframeSelection on a rendered sequence, and the eleven subcommands of
+   ROADMAP item 13 (a) on the `cli` phase's outputs, on the card and on the
+   CPU (byte-equal files), gated at the JAX package's readings on the same
+   images (EXTRAS_REFERENCE); no SGM launch;
 11. prints a `mesh_surface`, a `hard_scene`, a `dense_full`, a `front`, a
    `pipeline`, a `ba`, a `cli`, a `panorama`, a `localization`, a
-   `solvers`, a `calibration` and a `kernels` JSON line and, last,
-   `{"ok": true, "device": ...}`.
+   `solvers`, a `calibration`, an `extras` and a `kernels` JSON line and,
+   last, `{"ok": true, "device": ...}`.
 
 Every failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA device; `make_posed_scene`, `run_main_path`, `run_front`,
@@ -156,6 +163,7 @@ It needs a CUDA device; `make_posed_scene`, `run_main_path`, `run_front`,
 `cli_chain`, `check_cli`, `make_panorama_inputs`, `run_panorama_chain`,
 `panorama_report`, `run_hard_scene_engine`, `run_hard_images`,
 `run_localization_phase`, `check_eigh_sites`, `run_calibration_phase`,
+`run_extras_phase`,
 the bench scenes and the BA problem builders
 also run on the CPU at small sizes (the port's tests call some of them
 so).
@@ -947,23 +955,44 @@ def front_report(res: dict, posed_sfm: str, n_views: int) -> dict:
     """Keypoints per view, geometric inliers per pair, and their Sampson
     distances to the true epipolar geometry."""
     feats = [stages.load_features(res["feats"], v + 1) for v in range(n_views)]
-    matches = stages.load_matches(res["matches"])
-    dists = []
-    inliers = {}
-    for (i, j), pm in sorted(matches.items()):
-        inliers[f"{i}_{j}"] = len(pm)
-        if len(pm):
-            F = fundamental_true(posed_sfm, i, j)
-            dists.append(epipolar_px(F, feats[i]["xy"][pm[:, 0]], feats[j]["xy"][pm[:, 1]]))
-    d = np.concatenate(dists) if dists else np.zeros(0)
+    st = epipolar_stats(posed_sfm, feats, stages.load_matches(res["matches"]))
     return {
         "keypoints_per_view": [int(f["valid"].sum()) for f in feats],
-        "inliers_per_pair": inliers,
-        "adjacent_inliers": [inliers.get(f"{v}_{v + 1}", 0) for v in range(n_views - 1)],
-        "inliers_total": int(len(d)),
-        "frac_within_2px_of_true_epipolar": float((d < FRONT_EPI_PX).mean()) if len(d) else 0.0,
-        "median_sampson_px": float(np.median(d)) if len(d) else None,
+        "inliers_per_pair": st["per_pair"],
+        "adjacent_inliers": [st["per_pair"].get(f"{v}_{v + 1}", 0) for v in range(n_views - 1)],
+        "inliers_total": st["matches"],
+        "frac_within_2px_of_true_epipolar": st["frac_within_2px"],
+        "median_sampson_px": st["median_sampson_px"],
     }
+
+
+def epipolar_stats(posed_sfm: str, feats: list, matches: dict) -> dict:
+    """Matches per pair and their Sampson distances to the true epipolar
+    geometry: the count, the median and the share within FRONT_EPI_PX."""
+    dists, per_pair = [], {}
+    for (i, j), pm in sorted(matches.items()):
+        per_pair[f"{i}_{j}"] = len(pm)
+        if len(pm):
+            dists.append(epipolar_px(fundamental_true(posed_sfm, i, j), feats[i]["xy"][pm[:, 0]],
+                                     feats[j]["xy"][pm[:, 1]]))
+    d = np.concatenate(dists) if dists else np.zeros(0)
+    return {"matches": int(len(d)), "per_pair": per_pair,
+            "median_sampson_px": float(np.median(d)) if len(d) else None,
+            "frac_within_2px": float((d < FRONT_EPI_PX).mean()) if len(d) else 0.0}
+
+
+def card_cpu_features(img: np.ndarray, dev, extract, downscale_to: int = 1024) -> tuple:
+    """`extract` (a describer of a (H, W) tensor) of one image on the CPU
+    and on `dev`, resized first as featureExtraction resizes it: two dicts
+    of host arrays (xy, scale, orientation, desc, valid)."""
+    s = downscale_to / max(img.shape) if max(img.shape) > downscale_to else 1.0
+    size = (int(img.shape[1] * s), int(img.shape[0] * s))
+    out = []
+    for d in ("cpu", dev):
+        x = torch.from_numpy(img).to(d)
+        f = extract(_resize_bilinear(x, size) if s != 1.0 else x)
+        out.append({k: getattr(f, k).cpu().numpy() for k in ("xy", "scale", "orientation", "desc", "valid")})
+    return tuple(out)
 
 
 def compare_cpu_card(img: np.ndarray, dev, downscale_to: int = 1024) -> dict:
@@ -972,14 +1001,7 @@ def compare_cpu_card(img: np.ndarray, dev, downscale_to: int = 1024) -> dict:
     keypoints with a card keypoint within FRONT_CPU_CARD_PX at the same
     orientation, and the largest descriptor difference among those."""
     cfg = sift.SiftConfig(max_keypoints=FRONT_MAX_KEYPOINTS, n_octaves=4)
-    s = downscale_to / max(img.shape)
-    size = (int(img.shape[1] * s), int(img.shape[0] * s))
-    out = []
-    for d in ("cpu", dev):
-        x = _resize_bilinear(torch.from_numpy(img).to(d), size)
-        f = sift.extract(x, cfg)
-        out.append({k: getattr(f, k).cpu().numpy() for k in ("xy", "orientation", "desc", "valid")})
-    a, b = out
+    a, b = card_cpu_features(img, dev, lambda x: sift.extract(x, cfg), downscale_to)
     va, vb = a["valid"], b["valid"]
     dxy = np.linalg.norm(a["xy"][va][:, None] - b["xy"][vb][None], axis=-1)
     near, dist = dxy.argmin(1), dxy.min(1)
@@ -3959,6 +3981,443 @@ def check_calibration(dev, work: str, smi: str) -> tuple:
     return row, row["sgm_launches"]
 
 
+# ----------------------------------------------------------------------- extras
+
+# The extras phase (after the calibration phase): the front-end extras —
+# AKAZE (MSURF and MLDB), the homography-growing filter, K-VLD and the
+# photometric filter, keyframeSelection — and the subcommands of ROADMAP
+# item 13 (a), in this process through `cli.main` and the modules. It runs
+# on the dense phase's 8 rendered 1280x960 views and the cli phase's
+# DSP-SIFT features, matches, tracks and reconstruction; keyframeSelection
+# on a rendered 10-frame sequence with two of every three frames blurred.
+# Its readings against the truth are gated at the JAX package's on the same
+# images (scripts/front_extras_reference.py, on the CPU: EXTRAS_REFERENCE,
+# with the margins of EXTRAS_GATES); the card's outputs are held to the
+# CPU's. None of these modules reaches a Pallas kernel in the JAX package:
+# the phase launches no SGM kernel.
+
+EXTRAS_PAIR = (0, 1)  # the view pair of the K-VLD and photometric filters
+EXTRAS_KEYFRAMES = dict(n_frames=10, wh=(320, 240), focal_px=280.0, arc=0.06, sharp_every=3, blur_sigma=2.0,
+                        step=3)
+EXTRAS_VOCTREE = dict(neighbors=2, draws=8)  # voctreeQueryUtility's recall of adjacent views, over draws
+EXTRAS_COV_ATOL = 1e-3  # computeUncertainty, card against CPU: of the largest entry, and the mean trace (relative)
+EXTRAS_CARD_CPU_KEYPOINTS = 0.95  # AKAZE: the CPU's keypoints with a card keypoint at its place and scale
+EXTRAS_CARD_CPU_PX = 0.05
+EXTRAS_MASK_AGREE = 0.99  # K-VLD and photometric keep masks, card against CPU
+# the outputs that must be byte-equal on the card and the CPU (the tree,
+# its pairs and the covariances depend on the draw or on float32 sums)
+EXTRAS_BYTE_EQUAL = ("keypoints", "matches_svg", "tracks.svg", "middlebury.sfm", "mvstex", "matlab", "maya")
+# The JAX package's readings on the same images (scripts/front_extras_reference.py,
+# JAX on the CPU): matches over the 28 pairs and their median Sampson distance to
+# the truth (px); K-VLD and the photometric filter on EXTRAS_PAIR's putative
+# matches; the keyframes; adjacent pairs retrieved over 64 trees, and the
+# 0.1 % quantile of an 8-draw total
+EXTRAS_REFERENCE = {
+    "akaze": {"matches": 598, "median_sampson_px": 1.1369, "frac_within_2px": 0.6773},
+    "akaze_mldb": {"matches": 329, "median_sampson_px": 0.93, "frac_within_2px": 0.7447},
+    "homography_growing": {"matches": 1345, "median_sampson_px": 0.3069, "frac_within_2px": 0.971},
+    "putative": {"kept": 118, "median_sampson_px": 0.3045, "frac_within_2px": 0.9322},
+    "kvld": {"kept": 114, "median_sampson_px": 0.2746, "frac_within_2px": 0.9649},
+    "photometric": {"kept": 118, "median_sampson_px": 0.3045, "frac_within_2px": 0.9322},
+    "keyframes_smart": ["f004.npy", "f007.npy"],
+    "keyframes_regular": ["f000.npy", "f003.npy", "f006.npy", "f009.npy"],
+    "voctree": {"draws": 64, "adjacent_per_draw_mean": 6.9844, "adjacent_per_draw_min": 6, "of_per_draw": 7, "block": 8},
+    "voctree_total_gate": 54,
+}
+# Gates: a reading may be this much worse than the JAX package's
+EXTRAS_GATES = dict(inliers_frac=0.8, sampson_factor=1.5, sampson_slack_px=0.2, kept_frac=0.8)
+
+
+def extras_front_chain(work: str, init: str, sift_feats: str, pairs: str) -> list:
+    """The phase's front commands as (name, argv) over `work`: AKAZE and
+    AKAZE-MLDB extraction with F-filtered matching, the homography-growing
+    filter on the SIFT features, and EXTRAS_PAIR's putative (photometric)
+    matches."""
+    def w(*p):
+        return os.path.join(work, *p)
+
+    steps = []
+    for d in ("akaze", "akaze_mldb"):
+        steps += [("featureExtraction", ["--input", init, "--output", w(d), "--describerTypes", d]),
+                  ("featureMatching", ["--input", init, "--features", w(d), "--pairs", pairs,
+                                       "--output", w(f"{d}_matches.npz")])]
+    steps += [("featureMatching", ["--input", init, "--features", sift_feats, "--pairs", pairs,
+                                   "--geometric", "homography_growing", "--output", w("hg_matches.npz")]),
+              ("featureMatching", ["--input", init, "--features", sift_feats, "--pairs", w("pair.txt"),
+                                   "--geometric", "none", "--output", w("putative.npz")])]
+    with open(w("pair.txt"), "w") as f:
+        f.write(f"{EXTRAS_PAIR[0]} {EXTRAS_PAIR[1]}\n")
+    return steps
+
+
+def extras_front_report(work: str, posed_sfm: str, sift_feats: str, n_views: int) -> dict:
+    """AKAZE's keypoints and F-verified matches, and the homography-growing
+    filter's matches, against the truth."""
+    rep = {}
+    for d in ("akaze", "akaze_mldb"):
+        feats = [stages.load_features(os.path.join(work, d), v + 1) for v in range(n_views)]
+        rep[d] = {"keypoints_per_view": [int(f["valid"].sum()) for f in feats],
+                  "desc_dim": int(feats[0]["desc"].shape[1]), "desc_dtype": str(feats[0]["desc"].dtype),
+                  **epipolar_stats(posed_sfm, feats, stages.load_matches(os.path.join(work, f"{d}_matches.npz")))}
+    feats = [stages.load_features(sift_feats, v + 1) for v in range(n_views)]
+    rep["homography_growing"] = epipolar_stats(posed_sfm, feats,
+                                                stages.load_matches(os.path.join(work, "hg_matches.npz")))
+    return rep
+
+
+def extras_filter_readings(work: str, image_folder: str, posed_sfm: str, sift_feats: str, kvld, photometric) -> dict:
+    """K-VLD and the photometric filter on EXTRAS_PAIR's putative matches:
+    `kvld(img1, img2, xy1, xy2)` -> keep mask, `photometric(img1, img2,
+    feats1, feats2, pairs)` -> (kept pairs, scores). The keep masks, and
+    the Sampson distances of what each keeps."""
+    i, j = EXTRAS_PAIR
+    pm = stages.load_matches(os.path.join(work, "putative.npz"))[(i, j)]
+    fi, fj = (stages.load_features(sift_feats, v + 1) for v in (i, j))
+    imgs = [np.load(os.path.join(image_folder, f"{v + 1}.npy")).astype(np.float32) for v in (i, j)]
+    F = fundamental_true(posed_sfm, i, j)
+    x1, x2 = fi["xy"][pm[:, 0]], fj["xy"][pm[:, 1]]
+    d = epipolar_px(F, x1, x2)
+    keep_k = np.asarray(kvld(imgs[0], imgs[1], x1, x2), bool)
+    kept_p, scores = photometric(imgs[0], imgs[1], fi, fj, pm)
+    keep_p = np.isin(np.arange(len(pm)), np.nonzero((pm[:, None] == kept_p[None]).all(-1).any(-1))[0])
+
+    def stats(keep):
+        return {"kept": int(keep.sum()), "median_sampson_px": float(np.median(d[keep])) if keep.any() else None,
+                "frac_within_2px": float((d[keep] < FRONT_EPI_PX).mean()) if keep.any() else 0.0}
+
+    return {"putative": stats(np.ones(len(pm), bool)), "kvld": stats(keep_k), "photometric": stats(keep_p),
+            "masks": {"kvld": keep_k, "photometric": keep_p, "zncc": np.asarray(scores, np.float32)}}
+
+
+def make_keyframe_sequence(folder: str, cfg=EXTRAS_KEYFRAMES) -> list:
+    """A short rendered pan (the box world along a small arc), frames
+    f000.npy.. in `folder`; all but every `sharp_every`-th frame (from 1)
+    blurred. Returns the sharp flags."""
+    from alicevision_tpu_torch.image.filtering import gaussian_blur
+
+    imgs, *_ = render_views(cfg["n_frames"], cfg["wh"], focal_px=cfg["focal_px"], arc=cfg["arc"], seed=0)
+    os.makedirs(folder, exist_ok=True)
+    sharp = []
+    for k, img in enumerate(imgs):
+        is_sharp = k % cfg["sharp_every"] == 1
+        if not is_sharp:
+            img = gaussian_blur(torch.from_numpy(img), cfg["blur_sigma"]).numpy()
+        np.save(os.path.join(folder, f"f{k:03d}.npy"), img.astype(np.float32))
+        sharp.append(is_sharp)
+    return sharp
+
+
+def keyframe_chain(folder: str, work: str, cfg=EXTRAS_KEYFRAMES) -> list:
+    return [("keyframeSelection", ["--inputFolder", folder, "--output", os.path.join(work, "keyframes_smart.txt")]),
+            ("keyframeSelection", ["--inputFolder", folder, "--output", os.path.join(work, "keyframes_regular.txt"),
+                                   "--method", "regular", "--step", str(cfg["step"])])]
+
+
+def read_keyframes(work: str) -> dict:
+    """The frame names `keyframe_chain` selected, by method."""
+    out = {}
+    for m in ("smart", "regular"):
+        with open(os.path.join(work, f"keyframes_{m}.txt")) as f:
+            out[m] = f.read().split()
+    return out
+
+
+def write_middlebury_par(posed_sfm: str, path: str) -> None:
+    """A Middlebury `*_par.txt` of a posed scene: each view's image name,
+    K, R and t = -R c."""
+    sc = sfmdata.load(posed_sfm)
+    lines = [str(len(sc.valid_views()))]
+    for v in sc.valid_views():
+        K, R, c = sc.camera_matrices(v)
+        vals = [*K.reshape(-1), *R.reshape(-1), *(-R @ c)]
+        lines.append(os.path.basename(sc.view_paths[v]) + " " + " ".join(repr(float(x)) for x in vals))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def extras_tools_chain(work: str, init: str, feats: str, matches: str, tracks: str, recon_sfm: str, par: str,
+                       image_folder: str) -> list:
+    """The eleven subcommands of item 13 (a) as (name, argv), writing under
+    `work`."""
+    def w(*p):
+        return os.path.join(work, *p)
+
+    return [
+        ("exportKeypoints", ["--input", init, "--features", feats, "--output", w("keypoints")]),
+        ("exportMatches", ["--input", init, "--features", feats, "--matches", matches, "--output", w("matches_svg")]),
+        ("exportTracks", ["--input", init, "--tracks", tracks, "--features", feats, "--output", w("tracks.svg")]),
+        ("importMiddlebury", ["--input", par, "--imagesFolder", image_folder, "--output", w("middlebury.sfm")]),
+        ("voctreeCreation", ["--features", feats, "--input", init, "--output", w("tree.npz")]),
+        ("voctreeStatistics", ["--tree", w("tree.npz")]),
+        ("voctreeQueryUtility", ["--tree", w("tree.npz"), "--input", init, "--features", feats,
+                                 "--output", w("voctree_pairs.txt"), "--nbNeighbors", str(EXTRAS_VOCTREE["neighbors"])]),
+        ("computeUncertainty", ["--input", recon_sfm, "--output", w("covariances.npz")]),
+        ("exportMVSTexturing", ["--input", recon_sfm, "--output", w("mvstex")]),
+        ("exportMatlab", ["--input", recon_sfm, "--output", w("matlab")]),
+        ("exportMeshroomMaya", ["--input", recon_sfm, "--output", w("maya")]),
+    ]
+
+
+def _printing(main, printed: dict):
+    """`main` with each command's standard output kept in printed[name]."""
+    import contextlib
+    import io
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        printed[argv[0]] = buf.getvalue()
+        return rc
+
+    return run
+
+
+def tree_bytes(path: str) -> dict:
+    """{relative path: bytes} of every file under `path` (or of the file)."""
+    if os.path.isfile(path):
+        with open(path, "rb") as f:
+            return {"": f.read()}
+    out = {}
+    for d, _, files in sorted(os.walk(path)):
+        for name in sorted(files):
+            with open(os.path.join(d, name), "rb") as f:
+                out[os.path.relpath(os.path.join(d, name), path)] = f.read()
+    return out
+
+
+def adjacent_recall(pairs: np.ndarray, n_views: int) -> int:
+    """How many of the n_views - 1 adjacent view pairs (i, i + 1) of the
+    rendered arc are among `pairs`."""
+    have = {(int(a), int(b)) for a, b in np.asarray(pairs).reshape(-1, 2)}
+    return sum((v, v + 1) in have for v in range(n_views - 1))
+
+
+def voctree_sweep(init: str, feats: str, dev, draws: int) -> list:
+    """voctreeCreation and voctreeQueryUtility (their defaults, the phase's
+    --nbNeighbors) on the modules, for generator seeds 0..draws-1 on `dev`:
+    the adjacent pairs each draw's tree retrieves."""
+    from alicevision_tpu_torch.matching import voctree as vt
+
+    sc = sfmdata.load(init)
+    fs = [stages.load_features(feats, int(sc.view_ids[v])) for v in range(sc.n_views)]
+    train = torch.from_numpy(np.concatenate([f["desc"][f["valid"]] for f in fs])).to(dev)
+    out = []
+    for k in range(draws):
+        tree = vt.build_voctree(torch.Generator(device=dev).manual_seed(k), train, n_children=8, n_levels=3)
+        bows = torch.stack([vt.bow_vector(tree, torch.from_numpy(f["desc"]).to(dev), torch.from_numpy(f["valid"]).to(dev))
+                            for f in fs])
+        pairs = vt.query_pairs(vt.build_database(tree, bows), n_neighbors=EXTRAS_VOCTREE["neighbors"])
+        out.append(adjacent_recall(pairs, sc.n_views))
+    return out
+
+
+def akaze_card_cpu(img: np.ndarray, dev, downscale_to: int = 1024) -> dict:
+    """One view's AKAZE features on the CPU and on the card from the same
+    image, resized as featureExtraction resizes it: the share of the CPU's
+    keypoints with a card keypoint within EXTRAS_CARD_CPU_PX at the same
+    scale, and the largest MSURF difference among those at the same
+    orientation."""
+    from alicevision_tpu_torch.features import akaze
+
+    cfg = akaze.AkazeConfig(max_keypoints=FRONT_MAX_KEYPOINTS)
+    a, b = card_cpu_features(img, dev, lambda x: akaze.extract(x, cfg), downscale_to)
+    va, vb = a["valid"], b["valid"]
+    dxy = np.linalg.norm(a["xy"][va][:, None] - b["xy"][vb][None], axis=-1)
+    dxy = np.where(np.isclose(a["scale"][va][:, None], b["scale"][vb][None], rtol=1e-5), dxy, np.inf)
+    near, dist = dxy.argmin(1), dxy.min(1)
+    same = dist < EXTRAS_CARD_CPU_PX
+    dori = np.abs(np.angle(np.exp(1j * (b["orientation"][vb][near] - a["orientation"][va]))))
+    turned = same & (dori < 1e-3)
+    ddesc = np.abs(b["desc"][vb][near] - a["desc"][va])[turned]
+    return {"keypoints_cpu": int(va.sum()), "keypoints_card": int(vb.sum()),
+            "frac_matched": float(same.mean()) if len(same) else 0.0,
+            "frac_same_orientation": float(turned.mean()) if len(turned) else 0.0,
+            "max_desc_diff_same_orientation": float(ddesc.max()) if ddesc.size else None}
+
+
+def run_extras_phase(dev, work: str, posed_sfm: str, cli_dir: str, image_folder: str, recon_sfm: str | None = None,
+                     smi: str = "", kf_cfg=EXTRAS_KEYFRAMES, draws: int = EXTRAS_VOCTREE["draws"]) -> dict:
+    """The extras phase on the card `dev` (or on the CPU, for the tests):
+    the front commands, the filters, keyframeSelection and the eleven
+    subcommands, each of the last three on `dev` and on the CPU, with the
+    SGM launches counted from 0. `cli_dir` holds the cli phase's
+    cameraInit.sfm, features/, pairs.txt, matches.npz and tracks.npz;
+    `recon_sfm` (default its sfm.sfm) a reconstruction. Returns the row."""
+    from alicevision_tpu_torch.matching import kvld as tkvld
+    from alicevision_tpu_torch.matching.photometric_filter import photometric_filter
+    from alicevision_tpu_torch.pipeline.cli import main
+
+    cuda = torch.device(dev).type == "cuda"
+    sgm_kernel.launches.update(dict.fromkeys(sgm_kernel.launches, 0))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    ex = os.path.join(work, "extras")
+    os.makedirs(ex, exist_ok=True)
+    init, feats = os.path.join(cli_dir, "cameraInit.sfm"), os.path.join(cli_dir, "features")
+    recon_sfm = recon_sfm or os.path.join(cli_dir, "sfm.sfm")
+    n_views = sfmdata.load(init).n_views
+    on_dev = ("--device", str(dev))
+
+    rows = run_chain(main, extras_front_chain(ex, init, feats, os.path.join(cli_dir, "pairs.txt")), "extras", on_dev,
+                     dev if cuda else None)
+    front = extras_front_report(ex, posed_sfm, feats, n_views)
+    t0 = time.perf_counter()
+    front["akaze_card_cpu"] = akaze_card_cpu(np.load(os.path.join(image_folder, "1.npy")), dev)
+    front["akaze_card_cpu"]["seconds"] = time.perf_counter() - t0
+
+    filters = {}
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        filters[tag] = extras_filter_readings(
+            ex, image_folder, posed_sfm, feats,
+            lambda *a, d=d: tkvld.kvld_filter(*a, device=d),
+            lambda *a, d=d: photometric_filter(*a, device=d))
+        filters[tag]["seconds"] = time.perf_counter() - t0
+    masks = {tag: filters[tag].pop("masks") for tag in filters}
+    filters["agree"] = {k: float((masks["card"][k] == masks["cpu"][k]).mean()) for k in ("kvld", "photometric")}
+    filters["zncc_max_abs_diff"] = float(np.abs(masks["card"]["zncc"] - masks["cpu"]["zncc"]).max())
+
+    kf_dir = os.path.join(ex, "frames")
+    sharp = make_keyframe_sequence(kf_dir, kf_cfg)
+    keyframes = {"sharp": [k for k, s in enumerate(sharp) if s]}
+    par = os.path.join(ex, "scene_par.txt")
+    write_middlebury_par(posed_sfm, par)
+    printed, tool_rows = {}, {}
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        out = os.path.join(ex, f"run_{tag}")
+        os.makedirs(out, exist_ok=True)
+        kr = run_chain(main, keyframe_chain(kf_dir, out, kf_cfg), "extras", ("--device", str(d)),
+                       d if cuda and tag == "card" else None)
+        keyframes[tag] = read_keyframes(out)
+        keyframes[f"{tag}_seconds"] = {k: v["seconds"] for k, v in kr.items()}
+        printed[tag] = {}
+        tool_rows[tag] = run_chain(_printing(main, printed[tag]),
+                                   extras_tools_chain(out, init, feats, os.path.join(cli_dir, "matches.npz"),
+                                                      os.path.join(cli_dir, "tracks.npz"), recon_sfm, par,
+                                                      image_folder),
+                                   "extras", ("--device", str(d)), d if cuda and tag == "card" else None)
+    card, cpu = (os.path.join(ex, f"run_{t}") for t in ("card", "cpu"))
+    keyframes["equal"] = keyframes["card"]["smart"] == keyframes["cpu"]["smart"] and \
+        keyframes["card"]["regular"] == keyframes["cpu"]["regular"]
+    differ = [name for name in EXTRAS_BYTE_EQUAL
+              if tree_bytes(os.path.join(card, name)) != tree_bytes(os.path.join(cpu, name))]
+    # the tree depends on the draw, the covariances on float32 sums
+    same_json = [n for n in printed["card"] if not n.startswith(("voctree", "computeUncertainty"))]
+    differ += [f"printed {n}" for n in same_json if printed["card"][n] != printed["cpu"][n]]
+    with np.load(os.path.join(card, "covariances.npz")) as a, np.load(os.path.join(cpu, "covariances.npz")) as b:
+        ids_equal = bool(np.array_equal(a["view_ids"], b["view_ids"]))
+        cov_a, cov_b = a["covariances"], b["covariances"]
+    cov_diff = float(np.abs(cov_a - cov_b).max() / max(np.abs(cov_b).max(), 1e-30))
+    traces = [json.loads(printed[t]["computeUncertainty"])["mean_trace"] for t in ("card", "cpu")]
+    tools = {"byte_differ": differ, "covariances": {"views": int(len(cov_a)), "ids_equal": ids_equal,
+                                                    "max_diff_of_largest": cov_diff,
+                                                    "mean_trace": traces,
+                                                    "mean_trace_rel_diff": abs(traces[0] - traces[1]) / max(
+                                                        abs(traces[1]), 1e-30),
+                                                    "finite": bool(np.isfinite(cov_a).all())},
+             "voctree_pairs_adjacent": {t: adjacent_recall(np.loadtxt(os.path.join(ex, f"run_{t}", "voctree_pairs.txt"),
+                                                                     dtype=np.int64), n_views)
+                                        for t in ("card", "cpu")},
+             "seconds": {t: {k: v["seconds"] for k, v in tool_rows[t].items()} for t in tool_rows},
+             "device_peak_gib": {k: v["device_peak_gib"] for k, v in tool_rows["card"].items()}}
+    t0 = time.perf_counter()
+    sweep = voctree_sweep(init, feats, dev, draws)
+    tools["voctree_sweep"] = {"draws": draws, "adjacent_per_draw": sweep, "total": int(sum(sweep)),
+                              "of": draws * (n_views - 1), "seconds": time.perf_counter() - t0}
+    return {"card": smi, "commands": {k: {"seconds": v["seconds"], "device_peak_gib": v["device_peak_gib"]}
+                                      for k, v in rows.items()},
+            "front": front, "filters": filters, "keyframes": keyframes, "tools": tools,
+            "sgm_launches": dict(sgm_kernel.launches),
+            "device_peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def extras_gates(ref=None) -> dict:
+    """Each gate of the phase with the JAX reading it comes from."""
+    ref = EXTRAS_REFERENCE if ref is None else ref
+    g = EXTRAS_GATES
+
+    def sampson(r):
+        return max(g["sampson_factor"] * r, r + g["sampson_slack_px"])
+
+    gates = {}
+    for d in ("akaze", "akaze_mldb"):
+        r = ref[d]
+        gates[d] = {"matches_min": int(g["inliers_frac"] * r["matches"]), "median_sampson_px_max": sampson(
+            r["median_sampson_px"]), "jax": {k: r[k] for k in ("matches", "median_sampson_px")}}
+    r = ref["homography_growing"]
+    gates["homography_growing"] = {"matches_min": int(g["kept_frac"] * r["matches"]),
+                                   "median_sampson_px_max": sampson(r["median_sampson_px"]),
+                                   "jax": {k: r[k] for k in ("matches", "median_sampson_px")}}
+    for k in ("kvld", "photometric"):
+        r = ref[k]
+        gates[k] = {"median_sampson_px_max": sampson(r["median_sampson_px"]),
+                    "jax": {"kept": r["kept"], "median_sampson_px": r["median_sampson_px"],
+                            "putative_median_sampson_px": ref["putative"]["median_sampson_px"]}}
+    gates["keyframes"] = {"smart": ref["keyframes_smart"], "regular": ref["keyframes_regular"]}
+    gates["voctree_adjacent_total_min"] = {"min": ref["voctree_total_gate"], "jax": ref["voctree"]}
+    return gates
+
+
+def extras_misses(row: dict, ref=None) -> list:
+    """The phase's gates against its row."""
+    gates, bad = extras_gates(ref), []
+    f = row["front"]
+    for d in ("akaze", "akaze_mldb", "homography_growing"):
+        r, gt = f[d], gates[d]
+        if not (r["matches"] >= gt["matches_min"] and r["median_sampson_px"] is not None
+                and r["median_sampson_px"] <= gt["median_sampson_px_max"]):
+            bad.append(f"{d}: {r['matches']} matches at a median Sampson distance of {r['median_sampson_px']} px, "
+                       f"expected >= {gt['matches_min']} and <= {gt['median_sampson_px_max']} (JAX {gt['jax']})")
+    for d, dim, dtype in (("akaze", 64, "float32"), ("akaze_mldb", 486, "float32")):
+        if (f[d]["desc_dim"], f[d]["desc_dtype"]) != (dim, dtype):
+            bad.append(f"{d}: descriptors {f[d]['desc_dim']} x {f[d]['desc_dtype']}, expected {dim} x {dtype}")
+    cc = f["akaze_card_cpu"]
+    if not cc["frac_matched"] >= EXTRAS_CARD_CPU_KEYPOINTS:
+        bad.append(f"AKAZE card against CPU: {cc}, expected >= {EXTRAS_CARD_CPU_KEYPOINTS} of the keypoints")
+    fl = row["filters"]
+    for k in ("kvld", "photometric"):
+        r = fl["card"][k]
+        if not (r["kept"] > 0 and r["median_sampson_px"] <= gates[k]["median_sampson_px_max"]):
+            bad.append(f"{k}: kept {r['kept']} at a median Sampson distance of {r['median_sampson_px']} px, "
+                       f"expected <= {gates[k]['median_sampson_px_max']} (JAX {gates[k]['jax']})")
+        if not fl["agree"][k] >= EXTRAS_MASK_AGREE:
+            bad.append(f"{k}: the card's keep mask agrees with the CPU's on {fl['agree'][k]}, expected >= "
+                       f"{EXTRAS_MASK_AGREE}")
+    kf = row["keyframes"]
+    want = gates["keyframes"]
+    if not (kf["equal"] and kf["card"]["smart"] == want["smart"] and kf["card"]["regular"] == want["regular"]):
+        bad.append(f"keyframeSelection: card {kf['card']}, CPU {kf['cpu']}, expected the JAX package's {want}")
+    t = row["tools"]
+    if t["byte_differ"]:
+        bad.append(f"the card's outputs differ from the CPU's: {t['byte_differ']}")
+    cov = t["covariances"]
+    if not (cov["ids_equal"] and cov["finite"] and cov["max_diff_of_largest"] <= EXTRAS_COV_ATOL
+            and cov["mean_trace_rel_diff"] <= EXTRAS_COV_ATOL):
+        bad.append(f"computeUncertainty card against CPU: {cov}, expected within {EXTRAS_COV_ATOL} of the largest")
+    vs = t["voctree_sweep"]
+    if not vs["total"] >= gates["voctree_adjacent_total_min"]["min"]:
+        bad.append(f"voctreeQueryUtility: {vs['total']} adjacent pairs over {vs['draws']} draws, expected >= "
+                   f"{gates['voctree_adjacent_total_min']}")
+    if any(row["sgm_launches"].values()):
+        bad.append(f"the extras path launched SGM kernels: {row['sgm_launches']}")
+    return bad
+
+
+def check_extras(dev, work: str, smi: str) -> tuple:
+    """The extras phase on the dense phase's views and the cli phase's
+    outputs, and its gates. Returns (the row, its SGM launches, all 0)."""
+    row = run_extras_phase(dev, work, os.path.join(work, "scene.sfm"), os.path.join(work, "cli"),
+                           os.path.join(work, "images"), smi=smi)
+    row["gates"] = extras_gates()
+    bad = extras_misses(row)
+    if bad:
+        raise RuntimeError("extras: " + "; ".join(bad))
+    return row, row["sgm_launches"]
+
+
 def kernels_line(rows: list, agg_rows: list, launches: dict) -> dict:
     """The `kernels` entry of the SGM kernel, named after the entry the main
     path launches. Its numbers are one 640x480 D = 96 map's two
@@ -4132,6 +4591,10 @@ def main(argv=None) -> int:
 
         # 8d. calibration, distortion, the colour chart and photometric stereo
         cal_row, cal_launches = check_calibration(dev, work, smi)
+
+        # 8e. the front-end extras and item 13 (a)'s subcommands on the cli
+        # phase's outputs
+        extras_row, extras_launches = check_extras(dev, work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4150,8 +4613,9 @@ def main(argv=None) -> int:
     print(json.dumps({"localization": loc_row}), flush=True)
     print(json.dumps({"solvers": solvers}), flush=True)
     print(json.dumps({"calibration": cal_row}), flush=True)
+    print(json.dumps({"extras": extras_row}), flush=True)
     launches = {k: launches[k] + pipe_launches[k] + full_launches[k] + cli_launches[k] + pano_launches[k]
-                + loc_launches[k] + cal_launches[k] for k in launches}
+                + loc_launches[k] + cal_launches[k] + extras_launches[k] for k in launches}
     print(json.dumps({"kernels": [kernels_line(rows, agg_rows, launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

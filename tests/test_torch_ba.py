@@ -299,28 +299,6 @@ def test_ba_solve_while_counts_host_reads(noisy):
     assert tba.host_syncs - before == int(res.n_iters) == 4  # one read per LM iteration
 
 
-def test_ba_solve_joint_matches():
-    """Poses, points and the shared intrinsics of the distortion scene, from
-    a focal 1% off."""
-    jp = _disto_problem(all_fixed=False, focal_scale=1.01)
-    tp = _port(jp)
-    jres = jba.ba_solve_joint(jp, max_iters=15, refine_pp=False, rtol=1e-5)
-    tres = tba.ba_solve_joint(tp, max_iters=15, refine_pp=False, rtol=1e-5)
-    np.testing.assert_allclose(float(tres.cost_final), float(jres.cost_final), rtol=1e-3, atol=1e-3)
-    assert abs(int(tres.n_iters) - int(jres.n_iters)) <= 1
-    np.testing.assert_allclose(_np(tres.intr.scale), np.asarray(jres.intr.scale), rtol=1e-4)
-    # k3 is weakly observed and the two runs settle it differently; the
-    # distortion they define is held instead where the observations lie
-    # (|x|, |y| <= 0.28 on the normalized plane; the observations reach a
-    # radius of 0.31): within 1e-4, 0.12 px at the 1200 px focal
-    g = np.stack(np.meshgrid(np.linspace(-0.28, 0.28, 7), np.linspace(-0.28, 0.28, 7)), -1).reshape(-1, 2)
-    kind = np.asarray(jres.intr.disto_kind)[0]
-    dj = np.asarray(jcam.add_distortion(kind, jres.intr.disto[0], jnp.asarray(g, jnp.float32)))
-    dt = np.asarray(jcam.add_distortion(kind, jnp.asarray(_np(tres.intr.disto[0])), jnp.asarray(g, jnp.float32)))
-    np.testing.assert_allclose(dt, dj, atol=1e-4)
-    _assert_same_geometry(tres, jres)
-
-
 def test_refine_intrinsics_matches():
     """tests/test_intrinsics_refine_kvld.py's setting: focal 3% off, no
     distortion guess, poses and points held."""
@@ -339,39 +317,6 @@ def test_refine_intrinsics_matches():
     np.testing.assert_allclose(_np(tref.offset), np.asarray(jref.offset), atol=1e-2)
     np.testing.assert_allclose(_np(tref.disto), np.asarray(jref.disto), atol=1e-3)
     np.testing.assert_allclose(_np(tref.scale[0]), np.asarray(scene.intrinsics.scale), rtol=2e-3)
-
-
-@pytest.mark.parametrize("which", ["dense", "pcg"])
-def test_pose_covariances_match(which):
-    import __graft_entry__ as g
-
-    jp = g._toy_problem(n_views=6, n_points=96, max_track=5)
-    jres = jba.ba_solve(jp, max_iters=10)
-    jp = jp._replace(cam_q=jres.cam_q, cam_c=jres.cam_c, points=jres.points)
-    tp = _port(jp)
-    if which == "dense":
-        ref = np.asarray(jba.pose_covariances(jp, jp.cam_q, jp.cam_c, jp.points))
-        out = _np(tba.pose_covariances(tp, tp.cam_q, tp.cam_c, tp.points))
-    else:
-        idx = [2, 4, 5]
-        ref = np.asarray(jba.pose_covariances_pcg(jp, jp.cam_q, jp.cam_c, jp.points,
-                                                  cam_indices=jnp.asarray(idx), cg_iters=60))
-        out = _np(tba.pose_covariances_pcg(tp, tp.cam_q, tp.cam_c, tp.points, cam_indices=idx, cg_iters=60))
-    assert out.shape == ref.shape
-    # an inverse of the reduced system: rtol 1e-2 of each block's magnitude
-    for o, r_ in zip(out, ref):
-        np.testing.assert_allclose(o, r_, atol=1e-2 * np.abs(r_).max())
-
-
-def test_rig_solve_matches(rig):
-    jp, tp = rig
-    jres, jsq, jst = jba.rig_solve(jp, rounds=2, max_iters=8)
-    tres, tsq, tst = tba.rig_solve(tp, rounds=2, max_iters=8)
-    np.testing.assert_allclose(float(tres.cost_final), float(jres.cost_final), rtol=1e-3, atol=1e-4)
-    np.testing.assert_allclose(_np(tst), np.asarray(jst), atol=1e-4 * RADIUS)
-    Rt = np.asarray(jgeo.quat_to_mat(jnp.asarray(_np(tsq))))
-    np.testing.assert_allclose(Rt, np.asarray(jgeo.quat_to_mat(jsq)), atol=1e-4)
-    np.testing.assert_allclose(_np(tres.cam_c), np.asarray(jres.cam_c), atol=1e-4 * RADIUS)
 
 
 @pytest.mark.parametrize(

@@ -1,5 +1,6 @@
-"""The port's cameraLocalization and rigLocalization subcommands against the
-JAX CLI's on the CPU, on the same database and query folders.
+"""The port's cameraLocalization subcommand against the JAX CLI's on the CPU,
+on the same database and query folders (rigLocalization on the same inputs:
+tests/test_torch_rig_localization_cli.py).
 
 The database is tests/test_torch_localization_cli.py's (the hard scene's
 40-view ring rendered undistorted at 320x240, landmarks triangulated at the
@@ -13,9 +14,8 @@ and poses within 1 deg and 1 % of the ring's radius of each other (the
 readings: up to 0.58 deg, 0.75 %, inliers 8 apart). One run decimates its
 queries (`--downscaleTo 300`: every other pixel, keypoints scaled back by
 2; two of the four localize from 14-18 inliers, 1.6 deg and 2.0 % apart):
-3 deg and 4 % there. The average fusion localizes each camera at the CLI's
-defaults and maps it through the sub-pose. JAX's robust P3P is jitted for
-the module (tests/test_torch_localization.py's fixture).
+3 deg and 4 % there. JAX's robust P3P (tests/test_torch_localization.py's
+fixture), its query SIFT and its bags of words are jitted for the module.
 """
 
 import json
@@ -37,6 +37,26 @@ RADIUS = 6.0
 INLIER_RTOL, INLIER_ATOL = 0.25, 3
 TOL = (1.0, 0.01)  # deg, fraction of the radius
 TOL_DECIMATED = (3.0, 0.04)  # 160x120 queries: 14-18 inliers a pose
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jitted_reference_sift_and_bow():
+    """The JAX CLI's query SIFT and its localizer's bags of words, jitted
+    once a shape for the module: they run eagerly inside the JAX CLI,
+    compiling every primitive of every shape (most of the file's time)."""
+    import jax
+
+    from alicevision_tpu.features import sift as jsift
+    from alicevision_tpu.localization import voctree_localizer as jvl
+    from alicevision_tpu.matching import voctree as jvt
+
+    extract = jax.jit(jsift.extract, static_argnums=1)
+    bow = jax.jit(lambda c, d, v, nc, nl: jvt.bow_vector(jvt.VocTree(c, nc, nl), d, v), static_argnums=(3, 4))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jsift, "extract", extract)
+    mp.setattr(jvl, "bow_vector", lambda tree, d, v: bow(tree.centers, d, v, tree.n_children, tree.n_levels))
+    yield
+    mp.undo()
 
 
 @pytest.fixture(scope="module")
@@ -88,8 +108,14 @@ def _assert_agree(ref: dict, port: dict, localized_keys, tol=TOL):
             assert np.linalg.norm(np.asarray(b["c"]) - np.asarray(a["c"])) < tol[1] * RADIUS, name
 
 
-@pytest.mark.parametrize("method,downscale", [("voctree", None), ("direct", None), ("direct", 300)])
+@pytest.mark.parametrize("method,downscale", [("voctree", None), ("direct", None)])
 def test_camera_localization_matches_reference(db, queries, tmp_path, capsys, method, downscale):
+    check_camera_localization(db, queries, tmp_path, capsys, method, downscale)
+
+
+def check_camera_localization(db, queries, tmp_path, capsys, method, downscale):
+    """One cameraLocalization run through both CLIs, held together (the
+    decimated run: tests/test_torch_camera_localization_decimated_cli.py)."""
     feats = db[2]
     inputs, _, sfm = queries
     argv = ["cameraLocalization", "--input", sfm, "--features", feats, "--queryFolder", inputs["folders"][0],
@@ -100,20 +126,3 @@ def test_camera_localization_matches_reference(db, queries, tmp_path, capsys, me
     if downscale is None:
         # at full resolution every query localizes in both
         assert printed["jax"] == {"localized": N_QUERIES, "total": N_QUERIES}
-
-
-@pytest.mark.parametrize("fusion", ["joint", "average"])
-def test_rig_localization_matches_reference(db, queries, tmp_path, capsys, fusion):
-    feats = db[2]
-    inputs, rig, sfm = queries
-    argv = ["rigLocalization", "--input", sfm, "--features", feats, "--queryFolders", ",".join(inputs["folders"]),
-            "--rig", rig, "--fusion", fusion]
-    printed, written = _run_both(argv, "rig.json", tmp_path, capsys)
-    assert printed["port"] == printed["jax"]
-    _assert_agree(written["jax"], written["port"], ["n_inliers", "cameras"])
-    assert all(r["success"] for r in written["jax"].values())
-    if fusion == "average":
-        # each camera's own file, as the JAX CLI writes it
-        for k in range(2):
-            a, b = (json.loads((tmp_path / f"{t}_rig.json.cam{k}.json").read_text()) for t in ("jax", "port"))
-            _assert_agree(a, b, ["n_inliers"])

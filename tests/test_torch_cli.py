@@ -13,10 +13,11 @@ JAX package's, on the CPU.
   projections enter (sfmStatistics' residuals, the rendering commands) the
   outputs agree to float32 rounding: the two backends round a projection
   of ~100 px coordinates ~1e-5 px apart.
-- In a subprocess, as a farm runs it: an empty range exits 0, a missing
-  input exits non-zero with a `fatal` line and no traceback, an unported
-  subcommand exits 1 naming ROADMAP item 13, and without `--device cpu` on
-  a machine with no card the command fails with the no-CUDA message.
+- In a subprocess, as a farm runs it (tests/test_torch_cli_subprocess.py):
+  an empty range exits 0, a missing input exits non-zero with a `fatal`
+  line and no traceback, an unported subcommand exits 1 naming ROADMAP
+  item 13, and without `--device cpu` on a machine with no card the
+  command fails with the no-CUDA message.
 """
 
 import json
@@ -337,30 +338,6 @@ def _run(*argv, env_extra=None):
     env.update(env_extra or {})
     return subprocess.run([sys.executable, "-m", "alicevision_tpu_torch.pipeline.cli", *argv], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
-
-
-def test_subprocess_contract(scene, tmp_path):
-    root, sfm = scene
-    r = _run("featureExtraction", "--input", sfm, "--output", str(tmp_path / "f"), "--rangeStart", "999",
-             "--rangeSize", "10", *CPU)
-    assert r.returncode == 0, r.stderr
-    assert "featureExtraction done" in r.stderr
-    r = _run("featureExtraction", "--input", str(tmp_path / "nope.sfm"), "--output", str(tmp_path / "x"), *CPU)
-    assert r.returncode != 0 and "fatal" in r.stderr.lower() and "Traceback" not in r.stderr
-    r = _run("lidarMerging", "--input", str(tmp_path / "set.json"), "--output", str(tmp_path / "m.ply"), *CPU)
-    assert r.returncode == 1 and "ROADMAP item 13" in r.stderr and "Traceback" not in r.stderr
-    r = _run("exportMatlab", "--input", sfm, "--output", str(tmp_path / "m"), *CPU)
-    assert r.returncode == 1 and "ROADMAP item 13" in r.stderr
-
-
-def test_subprocess_needs_cuda_without_device_cpu(scene, tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device exists")
-    root, sfm = scene
-    r = _run("convertSfMFormat", "--input", sfm, "--output", str(tmp_path / "s.sfm"))
-    assert r.returncode != 0 and "no CUDA device" in r.stderr and "Traceback" not in r.stderr
-    assert not os.path.exists(tmp_path / "s.sfm")
-    assert tcli.main(["hardwareResources"]) == 1
 
 
 def test_profile_writes_a_trace(scene, tmp_path, capsys):

@@ -3,10 +3,9 @@
 
 The file-contract fixture of tests/test_modular_pipeline.py (the JAX
 package's synthetic 6-view ring, noise 0.3 px, one feature a point) goes
-through the port's three stages under that test's gates: 6 posed views,
-more than 60 landmarks, camera-centre ATE < 0.05 after a similarity
-alignment. The engines' random streams differ, so whole runs are held to
-the gates, not to JAX's numbers. The policies are host numpy over the
+through the port's three stages under that test's gates
+(tests/test_torch_expansion_chain.py). The engines' random streams
+differ, so whole runs are held to the gates, not to JAX's numbers. The policies are host numpy over the
 engine's state: from a JAX engine bootstrapped with the same small
 configuration and carried into a port engine (`convert.carry_engine_state`)
 their choices are equal. The checkpoint round trip restores the state
@@ -26,7 +25,6 @@ from alicevision_tpu.sfm.incremental import IncrementalSfM as JEngine
 from alicevision_tpu.tracks.builder import build_tracks as jbuild_tracks
 from alicevision_tpu.utils.synthetic import ring_scene
 from alicevision_tpu_torch import convert, sfmdata
-from alicevision_tpu_torch.pipeline import stages
 from alicevision_tpu_torch.sfm import expansion as texp
 from alicevision_tpu_torch.sfm.alignment import umeyama_similarity
 from alicevision_tpu_torch.sfm.incremental import IncrementalConfig, IncrementalSfM
@@ -78,27 +76,6 @@ def _ate(sc, syn):
     est, gt = np.array(est), np.array(gt)
     s, R, t = umeyama_similarity(est, gt)
     return float(np.sqrt(np.mean(np.sum((est @ (s * R).T + t - gt) ** 2, 1))))
-
-
-def test_modular_chain_gates(setup):
-    d = setup["d"]
-    tracks_f = os.path.join(d, "tracks.npz")
-    stages.tracks_building(setup["scene"], setup["feats"], setup["matches"], tracks_f, min_track_length=3,
-                           device="cpu")
-    with np.load(tracks_f) as z:
-        assert int(z["n_tracks"]) > 50
-    boot_f = os.path.join(d, "boot.sfm")
-    stages.sfm_bootstrapping(setup["scene"], setup["feats"], tracks_f, boot_f, device="cpu")
-    boot = sfmdata.load(boot_f)
-    assert boot.n_poses >= 2 and boot.n_landmarks > 30
-    out_f = os.path.join(d, "expanded.sfm")
-    stages.sfm_expanding(boot_f, setup["feats"], tracks_f, out_f, device="cpu")
-    out = sfmdata.load(out_f)
-    assert out.n_poses == N_VIEWS
-    assert out.n_landmarks > 60
-    assert _ate(out, setup["syn"]) < 0.05
-    # the JAX package reads the port's scene
-    assert jsfm.load(out_f).n_poses == N_VIEWS
 
 
 def _engines(setup):

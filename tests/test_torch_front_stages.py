@@ -191,8 +191,18 @@ def test_front_stages_raise_without_cuda_or_for_unported(run, tmp_path):
             tst.image_matching(q["sfm"], q["feats"], str(tmp_path / "p.txt"))
         with pytest.raises(RuntimeError, match="CUDA"):
             tst.feature_matching(q["sfm"], q["feats"], q["pairs"], str(tmp_path / "m.npz"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.feature_extraction(q["sfm"], str(tmp_path / "f"), describer_types="akaze", device="cpu")
+    # the AKAZE branch (tests/test_torch_akaze.py holds its tolerances):
+    # view 1's keypoints as the JAX stage's, MSURF descriptors float32
+    tst.feature_extraction(q["sfm"], str(tmp_path / "fa"), max_keypoints=MAX_KP, downscale_to=0, range_size=1,
+                           describer_types="akaze", device="cpu")
+    jst.feature_extraction(run["jax"]["sfm"], str(tmp_path / "fja"), max_keypoints=MAX_KP, downscale_to=0,
+                           range_size=1, describer_types="akaze")
+    fa, fja = tst.load_features(str(tmp_path / "fa"), 1), jst.load_features(str(tmp_path / "fja"), 1)
+    assert fa["desc"].dtype == np.float32 and fa["desc"].shape == fja["desc"].shape == (MAX_KP, 64)
+    va, vja = fa["valid"], fja["valid"]
+    assert vja.sum() > 100 and abs(int(va.sum()) - int(vja.sum())) <= max(1, 0.02 * vja.sum())
+    d = np.linalg.norm(fja["xy"][vja][:, None] - fa["xy"][va][None], axis=-1)
+    assert (d.min(1) < 0.5).mean() >= 0.98
     # the marker describer beside SIFT: the tag file equals the JAX stage's
     tst.feature_extraction(q["sfm"], str(tmp_path / "f"), max_keypoints=MAX_KP, downscale_to=0, range_size=1,
                            describer_types="sift,tag16h5", device="cpu")
@@ -217,9 +227,16 @@ def test_front_stages_raise_without_cuda_or_for_unported(run, tmp_path):
     np.testing.assert_array_equal(got, want)
     assert len(got) == N_VIEWS * (N_VIEWS - 1) // 2
     assert (tmp_path / "p.txt").read_text() == (tmp_path / "pj.txt").read_text()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.feature_matching(q["sfm"], q["feats"], q["pairs"], str(tmp_path / "m.npz"),
-                             geometric="homography_growing", device="cpu")
+    # the homography_growing branch keeps the JAX stage's matches on the
+    # same features (tests/test_torch_hgrowing.py holds the filter)
+    for name, st, kw in (("jax", jst, {}), ("torch", tst, {"device": "cpu"})):
+        st.feature_matching(run["jax"]["sfm"], run["jax"]["feats"], run["jax"]["pairs"],
+                            str(tmp_path / f"hg_{name}.npz"), geometric="homography_growing", **kw)
+    with np.load(tmp_path / "hg_jax.npz") as a, np.load(tmp_path / "hg_torch.npz") as b:
+        assert a.files == b.files and len(a.files) == N_VIEWS * (N_VIEWS - 1) // 2
+        for k in a.files:
+            np.testing.assert_array_equal(b[k], a[k])
+        assert sum(len(a[k]) for k in a.files) > 100
 
 
 def test_chip_smoke_front_phase_on_cpu(tmp_path):

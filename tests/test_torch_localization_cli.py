@@ -19,9 +19,10 @@ triangulated at the true poses (computeStructureFromKnownPoses).
   the port's own modules (the CLI's first query equals `localize_image`
   with the generator the CLI seeds); the modules are held to the JAX ones
   in tests/test_torch_localization.py.
-- 84 of the 103 subcommands run; the other 19 exit 1 naming ROADMAP item 13.
+- 96 of the 103 subcommands run; the other 7 exit 1 naming ROADMAP item 13.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -46,13 +47,42 @@ N_QUERIES = 4
 SEEDS = 2  # draws of the phase's sweep at this size (LOC_SWEEP_SEEDS on the card)
 
 
+@contextlib.contextmanager
+def built_once(tmp_path_factory, worker_id: str, name: str):
+    """A folder `name` that one test run builds once and every test worker
+    of the run reuses: (folder, built) under an exclusive file lock, where
+    `built` tells whether an earlier holder finished it. Under xdist the
+    folder sits in the run's shared temporary root, otherwise in the run's
+    own."""
+    import fcntl
+
+    base = tmp_path_factory.getbasetemp()
+    root = (base if worker_id == "master" else base.parent) / name
+    root.mkdir(exist_ok=True)
+    with open(root / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            yield root, (root / ".built").exists()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 @pytest.fixture(scope="module")
-def db(tmp_path_factory):
-    """(folder, database .sfm, features, posed truth .sfm, R_gt, c_gt)."""
-    root = tmp_path_factory.mktemp("locdb")
+def db(tmp_path_factory, worker_id):
+    """(folder, database .sfm, features, posed truth .sfm, R_gt, c_gt),
+    built once a test run (tests/test_torch_camera_localization_cli.py and
+    test_torch_rig_localization_cli.py read it too)."""
     _, R_gt, c_gt = _ring_cameras(chip_smoke.HARD_VIEWS, 6.0, 1.2, FOCAL, WH, 0)
+    with built_once(tmp_path_factory, worker_id, "locdb") as (root, built):
+        if not built:
+            _build_db(root, R_gt, c_gt)
+            (root / ".built").touch()
+    return root, str(root / "db.sfm"), str(root / "features"), str(root / "posed.sfm"), R_gt, c_gt
+
+
+def _build_db(root, R_gt, c_gt):
     imgs = chip_smoke.render_at_poses(R_gt, c_gt, WH, FOCAL, (0.0, 0.0, 0.0), "cpu")
-    os.makedirs(root / "images")
+    os.makedirs(root / "images", exist_ok=True)
     for v, img in enumerate(imgs):
         np.save(root / "images" / f"view_{v:03d}.npy", img)
     init, feats = str(root / "init.sfm"), str(root / "features")
@@ -68,17 +98,37 @@ def db(tmp_path_factory):
     out = str(root / "db.sfm")
     assert tcli.main(["computeStructureFromKnownPoses", "--input", posed, "--features", feats, "--matches",
                       str(root / "matches.npz"), "--output", out, *CPU]) == 0
-    return root, out, feats, posed, R_gt, c_gt
 
 
 @pytest.fixture(scope="module")
 def phase(db, tmp_path_factory):
+    """The phase's row. Its commands and sweep extract each query's SIFT
+    again at every run (68 extractions of 16 images, 0.4 s each on one
+    thread); here an extraction is kept for the phase by its inputs."""
     root, sfm, feats, _, R_gt, c_gt = db
     work = str(tmp_path_factory.mktemp("locphase"))
-    row = chip_smoke.run_localization_phase("cpu", work, sfm, feats, R_gt, c_gt, n_queries=N_QUERIES, wh=WH,
+    extract, seen = cli_ext._query_features, {}
+
+    def once(path, row, dev, max_keypoints, downscale_to=0):
+        key = (path, tuple(tuple(np.asarray(a.cpu()).ravel().tolist()) for a in row), str(dev), max_keypoints,
+               downscale_to)
+        if key not in seen:
+            seen[key] = extract(path, row, dev, max_keypoints, downscale_to)
+        return tuple(a.copy() for a in seen[key])
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(cli_ext, "_query_features", once)
+    try:
+        row = _run_phase(work, sfm, feats, R_gt, c_gt)
+    finally:
+        mp.undo()
+    return work, row
+
+
+def _run_phase(work, sfm, feats, R_gt, c_gt):
+    return chip_smoke.run_localization_phase("cpu", work, sfm, feats, R_gt, c_gt, n_queries=N_QUERIES, wh=WH,
                                             focal_px=FOCAL, disto=(0.0, 0.0, 0.0), solver_batch=96, solver_cpu=32,
                                             marker_frames=4, sweep_seeds=SEEDS)
-    return work, row
 
 
 def test_chip_smoke_localization_phase_on_cpu(phase):
@@ -313,7 +363,7 @@ def test_subcommands_ported_count():
     sub = next(a for a in ap._actions if a.dest == "cmd").choices
     unported = [n for n, p in sub.items()
                 if (p._defaults.get("_handler") or tcli._HANDLERS.get(n, cli_ext._not_ported)) is cli_ext._not_ported]
-    assert len(sub) == 103 and len(unported) == 19
+    assert len(sub) == 103 and len(unported) == 7
     for name in ("cameraLocalization", "rigCalibration", "rigTransform", "rigLocalization", "sfmToRig",
                  "frustumFiltering", "sfmTransfer", "applyCalibration", "sfmDistances", "sfmRegression", "sfmMerge",
                  "sfmSplitReconstructed", "generateSampleScene"):

@@ -34,7 +34,9 @@ wanted = {"geometry.rotations", "geometry.pose", "camera.models", "utils.synthet
           "sfmdata.merge", "camera.undistortion", "camera.convert", "calibration", "calibration.checkerboard",
           "calibration.zhang", "calibration.distortion_lines", "misc.color_checker", "misc.sphere_detection",
           "photometric", "photometric.stereo", "photometric.lighting", "photometric.light_calibration",
-          "utils.calibration_scenes"}
+          "utils.calibration_scenes", "utils.svg", "sfmdata.middlebury", "sfmdata.alembic", "image.cache",
+          "image.feeds", "matching.photometric_filter", "matching.kvld", "matching.hgrowing", "features.akaze",
+          "keyframe", "keyframe.selector"}
 missing = wanted - {n.split(".", 1)[1] for n in names}
 assert not missing, missing
 for name in names:

@@ -99,16 +99,26 @@ def test_sgm_params_round_trip():
 
 
 def test_other_scene_formats_raise(tmp_path):
-    """Alembic is not ported; PLY and BAF exports are (their bytes are held
-    to the JAX package's in tests/test_torch_exports.py)."""
+    """An unknown extension raises; Alembic is ported (a host copy): the
+    port writes the JAX package's bytes and reads its archive back; PLY and
+    BAF exports write (their bytes are held to the JAX package's in
+    tests/test_torch_exports.py)."""
     sc = tsfm.SfMData.empty()
-    with pytest.raises(NotImplementedError):
-        tsfm.save(sc, str(tmp_path / "s.abc"))
-    with pytest.raises(NotImplementedError):
-        tsfm.load(str(tmp_path / "s.abc"))
+    for ext in (".xyz", ".abcd"):
+        with pytest.raises(ValueError, match="unsupported"):
+            tsfm.save(sc, str(tmp_path / f"s{ext}"))
+        with pytest.raises(ValueError, match="unsupported"):
+            tsfm.load(str(tmp_path / f"s{ext}"))
     for ext in (".ply", ".baf"):
         tsfm.save(sc, str(tmp_path / f"s{ext}"))
         assert os.path.getsize(tmp_path / f"s{ext}") > 0
+    jsfm.save(_reference_scene(), str(tmp_path / "r.sfm"))
+    jsfm.save(jsfm.load(str(tmp_path / "r.sfm")), str(tmp_path / "j.abc"))
+    tsfm.save(tsfm.load(str(tmp_path / "r.sfm")), str(tmp_path / "t.abc"))
+    assert (tmp_path / "t.abc").read_bytes() == (tmp_path / "j.abc").read_bytes()
+    a, b = jsfm.load(str(tmp_path / "j.abc")), tsfm.load(str(tmp_path / "j.abc"))
+    for field in ("view_ids", "view_pose", "pose_R", "pose_c", "points", "obs_uv", "scale", "offset", "disto"):
+        np.testing.assert_array_equal(getattr(b, field), getattr(a, field))
 
 
 def test_intrinsics_table_matches():
