@@ -1,7 +1,8 @@
 """Specular/calibration sphere detection (classical Hough voting).
 
 Port of `alicevision_tpu/misc/sphere_detection.py`: host numpy and scipy as
-there (tiny accumulators), copied. Counterpart of the reference's ONNX
+there (tiny accumulators), copied; `detect_sphere_onnx` runs its network on
+the device through `misc/segmentation`. Counterpart of the reference's ONNX
 sphereDetection module
 (ref: src/aliceVision/sphereDetection/sphereDetection.cpp — network-based
 sphere localization feeding lighting calibration). Circles are found by
@@ -59,7 +60,21 @@ def sphere_mask(shape, cx, cy, r) -> np.ndarray:
     return (xs - cx) ** 2 + (ys - cy) ** 2 <= r * r
 
 
-def detect_sphere_onnx(image, model_path: str, threshold: float = 0.5):
-    """ONNX-model sphere detection (ref: sphereDetection/). It goes through
-    `misc/segmentation`, which is not ported yet (ROADMAP item 13 (d))."""
-    raise NotImplementedError("detect_sphere_onnx goes through misc/segmentation, not ported yet (ROADMAP item 13 (d))")
+def detect_sphere_onnx(image, model_path: str, threshold: float = 0.5, device="cuda"):
+    """ONNX-model sphere detection (ref: sphereDetection/ — ONNX scores ->
+    circle fit), the network on `device` through `misc/segmentation`.
+    Returns (cx, cy, r) or None."""
+    from .segmentation import onnx_model, segment_tiled
+
+    run = onnx_model(model_path, device=device)
+    img = np.asarray(image, np.float32)
+    scores = segment_tiled(img if img.ndim == 3 else img[..., None], run)
+    if scores.ndim == 3:  # multi-class model: class 0 is the sphere score
+        scores = scores[..., 0]
+    mask = scores > threshold
+    if mask.sum() < 16:
+        return None
+    ys, xs = np.nonzero(mask)
+    cx, cy = xs.mean(), ys.mean()
+    r = np.sqrt(mask.sum() / np.pi)
+    return float(cx), float(cy), float(r)

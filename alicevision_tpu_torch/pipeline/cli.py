@@ -7,8 +7,7 @@ subcommands with the same flags, defaults and file contracts, so that an
 orchestrator drives it as Meshroom drives the reference, one process per
 stage talking through files. Every subcommand also takes `--device`
 (default `cuda`): without a CUDA device a command fails unless it is given
-`--device cpu`. Subcommands whose modules are not ported yet keep their
-parser and exit 1 naming ROADMAP item 13.
+`--device cpu`. All 103 subcommands of the JAX CLI run.
 
 Usage examples:
   python -m alicevision_tpu_torch.pipeline.cli cameraInit --imageFolder imgs/ --output scene.sfm
@@ -514,11 +513,10 @@ def _dispatch(argv=None) -> int:
     import torch
 
     from ..device import resolve_device
-    from .cli_ext import _not_ported
 
     args = build_parser().parse_args(argv)
     args.dev = resolve_device(args.device)
-    handler = getattr(args, "_handler", None) or _HANDLERS.get(args.cmd, _not_ported)
+    handler = getattr(args, "_handler", None) or _HANDLERS[args.cmd]
     t0 = time.time()
     with _profiler(args.profile, args.dev):
         handler(args)
@@ -1166,6 +1164,90 @@ def _keyframe_selection(args):
             f.write(files[i] + "\n")
 
 
+def _image_segmentation(args):
+    import numpy as np
+
+    from ..image.io import read_image, write_image
+    from ..misc.segmentation import onnx_model, segment_sky, segment_tiled
+
+    img = read_image(args.input)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, -1)
+    if args.modelPath:
+        # ref: src/software/pipeline/main_imageSegmentation.cpp: modelPath ->
+        # ONNX session -> tiled inference -> labels -> labelsToMask
+        score = segment_tiled(img[..., :3], onnx_model(args.modelPath, device=args.dev))
+        if score.ndim == 3:
+            # several classes: each pixel's label is its argmax, and the mask
+            # is the pixels labelled class 0, the foreground class (the JAX
+            # CLI thresholds class 0's raw score, ROADMAP §3)
+            mask = np.argmax(score, axis=-1) == 0
+        else:
+            mask = score > args.threshold
+    else:
+        mask = segment_sky(img, threshold=args.threshold)
+    write_image(args.output, mask.astype(np.float32))
+
+
+def _lidar_merging(args):
+    import numpy as np
+
+    from ..mvs import lidar as ld
+
+    scans = ld.load_input_set(args.input)
+    pts, org = ld.merge_scans(scans)
+    os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
+    ld.save_cloud_ply(args.output, pts)
+    if args.outputOrigins:
+        np.save(args.outputOrigins, org)
+    print(json.dumps({"points": int(len(pts)), "scans": len(scans)}))
+
+
+def _lidar_decimating(args):
+    import numpy as np
+
+    from ..mvs import lidar as ld
+
+    pts = ld.load_cloud_ply(args.input)
+    org = np.load(args.origins) if args.origins else np.zeros_like(pts)
+    pts, org = ld.decimate_cloud(pts, org, args.cellSize)
+    ld.save_cloud_ply(args.output, pts)
+    if args.outputOrigins:
+        np.save(args.outputOrigins, org)
+    print(json.dumps({"points": int(len(pts))}))
+
+
+def _lidar_meshing(args):
+    import numpy as np
+
+    from ..mesh import save_obj
+    from ..mvs import lidar as ld
+
+    if args.input.endswith(".json"):
+        pts, org = ld.merge_scans(ld.load_input_set(args.input))
+    else:
+        pts = ld.load_cloud_ply(args.input)
+        org = np.load(args.origins) if args.origins else np.zeros_like(pts)
+    v, f = ld.mesh_lidar(pts, org, max_points=args.maxPoints)
+    save_obj(args.output, v, f)
+    print(json.dumps({"vertices": int(len(v)), "faces": int(len(f))}))
+
+
+def _import_e57(args):
+    from ..mvs import lidar as ld
+
+    scans = ld.read_e57(args.input)
+    base, _ = os.path.splitext(args.output)
+    entries = []
+    for i, (pts, origin) in enumerate(scans):
+        ply = f"{base}_scan{i}.ply"
+        ld.save_cloud_ply(ply, pts)
+        entries.append({"ply": os.path.basename(ply), "origin": list(map(float, origin))})
+    with open(args.output, "w") as f:
+        json.dump(entries, f)
+    print(json.dumps({"scans": len(entries), "points": int(sum(len(p) for p, _ in scans))}))
+
+
 def _voctree_creation(args):
     """The vocabulary tree of the views' descriptors; its k-means seeds are
     drawn from a generator seeded 0 on the device (the JAX package draws
@@ -1219,8 +1301,7 @@ def _compute_uncertainty(args):
     print(json.dumps({"mean_trace": float(np.trace(cov, axis1=1, axis2=2).mean())}))
 
 
-# The subcommands of cli.py that run; the others (imageSegmentation and the
-# lidar tools) exit 1 naming ROADMAP item 13.
+# The subcommands of cli.py; cli_ext.py's registry carries its own handlers.
 _HANDLERS = {
     "cameraInit": _camera_init,
     "featureExtraction": _feature_extraction,
@@ -1268,6 +1349,11 @@ _HANDLERS = {
     "keyframeSelection": _keyframe_selection,
     "voctreeCreation": _voctree_creation,
     "computeUncertainty": _compute_uncertainty,
+    "imageSegmentation": _image_segmentation,
+    "lidarMerging": _lidar_merging,
+    "lidarDecimating": _lidar_decimating,
+    "lidarMeshing": _lidar_meshing,
+    "importE57": _import_e57,
 }
 
 

@@ -2,8 +2,7 @@
 
 Port of `alicevision_tpu/pipeline/cli_ext.py`: every subcommand of the
 reference's registry keeps its parser (the same flags and defaults), so
-`build_parser` is the reference's whole parser. The subcommands whose
-modules are ported run here; the others exit 1 naming ROADMAP item 13.
+`build_parser` is the reference's whole parser, and every subcommand runs.
 Handlers compute on `args.dev`, the device `cli.py` resolved.
 """
 
@@ -31,10 +30,6 @@ def register(sub, add_common) -> None:
         setup(p)
         add_common(p)
         p.set_defaults(_handler=handler)
-
-
-def _not_ported(args):
-    raise NotImplementedError(f"{args.cmd} is not ported yet (ROADMAP item 13)")
 
 
 def _ensure_parent(path):
@@ -207,7 +202,56 @@ def _setup_harmonize(p):
     p.add_argument("--output", required=True, help="folder of harmonized images")
 
 
-command("sfmColorHarmonize", _setup_harmonize)(_not_ported)
+def _sfm_color_harmonize(args):
+    """Gain/offset color consistency across matched views
+    (ref: src/software/pipeline/main_sfmColorHarmonize.cpp,
+    colorHarmonization/GainOffsetConstraintBuilder.cpp). Per-pair matched
+    quantiles feed the IRLS gain/offset solve on the device."""
+    import numpy as np
+
+    from .. import sfmdata
+    from ..image.io import read_image, write_image
+    from ..misc.color_harmonization import harmonize_gains, matched_quantile_constraints
+    from .stages import load_features, load_matches
+
+    sc = sfmdata.load(args.input)
+    matches = load_matches(args.matches)
+    imgs = {}
+    for v in range(sc.n_views):
+        path = sc.view_paths[v]
+        if path and os.path.exists(path):
+            imgs[v] = read_image(path, grayscale=True)
+    feats = {}
+
+    def get_xy(v):
+        if v not in feats:
+            feats[v] = load_features(args.features, int(sc.view_ids[v]))["xy"]
+        return feats[v]
+
+    edges, mi, mj = [], [], []
+    for (i, j), m in matches.items():
+        if i not in imgs or j not in imgs or len(m) == 0:
+            continue
+        # matched-region quantiles around the matched feature patches
+        # (GainOffsetConstraintBuilder histogram constraints)
+        q_i, q_j = matched_quantile_constraints(imgs[i], imgs[j], get_xy(i)[m[:, 0]], get_xy(j)[m[:, 1]])
+        for a, b in zip(q_i, q_j):
+            edges.append((i, j))
+            mi.append(float(a))
+            mj.append(float(b))
+    if not edges:
+        raise RuntimeError("no usable pairs for harmonization")
+    gains, offsets = harmonize_gains(sc.n_views, np.asarray(edges), np.asarray(mi, np.float32),
+                                     np.asarray(mj, np.float32), device=args.dev)
+    os.makedirs(args.output, exist_ok=True)
+    g, o = gains.cpu().numpy(), offsets.cpu().numpy()
+    for v, img in imgs.items():
+        out = np.clip(img * g[v] + o[v], 0.0, 1.0)
+        write_image(os.path.join(args.output, f"{int(sc.view_ids[v])}.png"), out)
+    print(json.dumps({"views": len(imgs)}))
+
+
+command("sfmColorHarmonize", _setup_harmonize)(_sfm_color_harmonize)
 
 
 def _setup_relpose(p):
@@ -1181,7 +1225,50 @@ def _setup_image_masking(p):
                    help="erode the mask (ref main_imageMasking.cpp:146)")
 
 
-command("imageMasking", _setup_image_masking)(_not_ported)
+def _image_masking(args):
+    """HSV-box / Otsu masking with grow/shrink postprocessing on the device
+    (ref: src/software/pipeline/main_imageMasking.cpp,
+    imageMasking/imageMasking.cpp)."""
+    import numpy as np
+    import torch
+
+    from ..image.io import read_image, write_image
+    from ..misc.masking import auto_threshold_mask, dilate, erode, hsv_mask
+
+    lo = [float(x) for x in args.hsvMin.split(",")]
+    hi = [float(x) for x in args.hsvMax.split(",")]
+    if os.path.isdir(args.input):
+        files = sorted(f for f in os.listdir(args.input) if f.lower().endswith((".jpg", ".png", ".jpeg", ".npy")))
+        os.makedirs(args.output, exist_ok=True)
+        pairs = [(os.path.join(args.input, f), os.path.join(args.output, os.path.splitext(f)[0] + "_mask.png"))
+                 for f in files]
+    else:
+        pairs = [(args.input, args.output)]
+    for src, dst in pairs:
+        img = read_image(src)
+        if img.ndim == 2:
+            img = np.stack([img] * 3, -1)
+        rgb = torch.from_numpy(np.ascontiguousarray(img)).to(args.dev)
+        if args.algorithm == "autoGrayscaleThreshold":
+            # the channels' mean, summed in their order on every device
+            gray = rgb[..., 0]
+            for c in range(1, rgb.shape[-1]):
+                gray = gray + rgb[..., c]
+            m = auto_threshold_mask(gray / rgb.shape[-1])
+            if args.invert:
+                m = ~m
+        else:
+            m = hsv_mask(rgb, h_range=(lo[0], hi[0]), s_range=(lo[1], hi[1]), v_range=(lo[2], hi[2]),
+                         invert=args.invert)
+        if args.growRadius > 0:
+            m = dilate(m, args.growRadius)
+        if args.shrinkRadius > 0:
+            m = erode(m, args.shrinkRadius)
+        write_image(dst, m.cpu().numpy().astype(np.float32))
+    print(json.dumps({"masks": len(pairs)}))
+
+
+command("imageMasking", _setup_image_masking)(_image_masking)
 
 
 def _obs_descriptors(sc, features_folder):

@@ -3,8 +3,9 @@
 its SfM front end, its whole main path (images to point cloud), its
 surface mesher, Meshroom's chain through its CLI (images to textured mesh,
 one process a stage), the HDR panorama chain and global SfM, the hard scene
-(images to poses), camera and rig localization against it, and its bundle
-adjuster once on one GPU.
+(images to poses), camera and rig localization against it, the auxiliary
+pipelines (masking, ONNX segmentation, colour harmonization, lidar and
+E57), and its bundle adjuster once on one GPU.
 
     python3 chip_smoke.py
 
@@ -152,10 +153,22 @@ toolkit (`nvcc`). It
    ROADMAP item 13 (a) on the `cli` phase's outputs, on the card and on the
    CPU (byte-equal files), gated at the JAX package's readings on the same
    images (EXTRAS_REFERENCE); no SGM launch;
+10f. the `aux` phase: the seven subcommands of ROADMAP item 13 (d) on the
+   card and on the CPU: imageMasking over the dense scene's 8 views (HSV
+   and Otsu) and a 24 MP photograph (HSV, grown and shrunk by 2),
+   imageSegmentation of a 12 MP photograph by the classical sky scorer and
+   by a network with torchvision's fcn_resnet50 layout (random seeded
+   weights, 63 tiles of 512 px) through the port's ONNX executor, two of
+   its tiles card against CPU in this process, sfmColorHarmonize of the cli
+   phase's views under known gains and offsets, and importE57 ->
+   lidarMerging -> lidarDecimating -> lidarMeshing on three ray-cast
+   scanner stations of 1024x512 rays (masks bit-equal and lidar files
+   byte-equal across devices), gated at the JAX chain's readings on the
+   same inputs (AUX_REFERENCE); no SGM launch;
 11. prints a `mesh_surface`, a `hard_scene`, a `dense_full`, a `front`, a
    `pipeline`, a `ba`, a `cli`, a `panorama`, a `localization`, a
-   `solvers`, a `calibration`, an `extras` and a `kernels` JSON line and,
-   last, `{"ok": true, "device": ...}`.
+   `solvers`, a `calibration`, an `extras`, an `aux` and a `kernels` JSON
+   line and, last, `{"ok": true, "device": ...}`.
 
 Every failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA device; `make_posed_scene`, `run_main_path`, `run_front`,
@@ -163,7 +176,7 @@ It needs a CUDA device; `make_posed_scene`, `run_main_path`, `run_front`,
 `cli_chain`, `check_cli`, `make_panorama_inputs`, `run_panorama_chain`,
 `panorama_report`, `run_hard_scene_engine`, `run_hard_images`,
 `run_localization_phase`, `check_eigh_sites`, `run_calibration_phase`,
-`run_extras_phase`,
+`run_extras_phase`, `run_aux_phase`,
 the bench scenes and the BA problem builders
 also run on the CPU at small sizes (the port's tests call some of them
 so).
@@ -4418,6 +4431,612 @@ def check_extras(dev, work: str, smi: str) -> tuple:
     return row, row["sgm_launches"]
 
 
+# ---------------------------------------------------------------------------
+# the `aux` phase (step 10f): item 13 (d)'s subcommands on the card
+# ---------------------------------------------------------------------------
+#
+# imageMasking over the dense scene's 8 views (folder mode, HSV and Otsu)
+# and over a 24 MP photograph (HSV, grown and shrunk by 2); imageSegmentation
+# of a 12 MP photograph by the classical sky scorer and by an FCN with the
+# layout of torchvision's fcn_resnet50 (random seeded weights) through the
+# port's ONNX executor; sfmColorHarmonize of the cli phase's views under
+# known gains and offsets; three lidar stations through importE57,
+# lidarMerging, lidarDecimating and lidarMeshing. Every command runs on the
+# card and on the CPU (the FCN's 63 tiles on the card only: two of its tiles
+# are held card against CPU in this process); the files are compared, and
+# the readings held to the JAX chain's on the same inputs
+# (scripts/aux_reference.py, AUX_REFERENCE). None of these modules reaches a
+# Pallas kernel in the JAX package: the phase launches no SGM kernel.
+
+AUX = dict(
+    photo_wh=(4000, 3000),  # imageSegmentation's photograph (12 MP)
+    mask_photo_wh=(6000, 4000),  # imageMasking's photograph (24 MP)
+    views_hsv=("0,0,0.3", "1,1,0.8"),  # the grey views' mid tones
+    sky_hsv=("0.5,0.2,0.3", "0.75,1,1"),  # the photograph's sky
+    grow_shrink=2,
+    fcn=dict(width=64, blocks=(3, 4, 6, 3), classes=21, seed=0),  # torchvision's fcn_resnet50
+    fcn_tiles=((0, 0), (-1, -1)),  # the first tile and the last (a 312x416 border tile) of segment_tiled's grid
+    gains=dict(gain=(0.7, 1.3), offset=(-0.05, 0.05), seed=0),
+    lidar=dict(samples=(1024, 512), cell=0.06, seed=0),
+)
+AUX_TILE, AUX_OVERLAP = 512, 64  # segment_tiled's defaults
+AUX_FCN_LOGIT_TOL = 1e-3  # the card's logits against the CPU's, of the tiles' largest |logit| (TF32 off)
+AUX_ROOM = [[-6.0, -6.0, -1.3], [6.0, 6.0, 3.0]]  # the scanners' enclosing room: every ray hits a face
+AUX_STATIONS = ((2.8, 0.4, 0.2), (-2.7, 1.9, 0.5), (0.3, -3.1, -0.2))
+AUX_E57_YAW_DEG = 30.0  # station 0's pose in its E57 file
+
+
+def aux_photo(wh, seed: int = 0) -> np.ndarray:
+    """A (H, W, 3) float32 photograph: a blue sky with soft clouds over a
+    wavy horizon, textured ground below, and pixel noise. Numpy, seeded,
+    elementwise (no BLAS sums, so every host makes the same bits); separable
+    linear upsampling keeps 24 MP to a few seconds."""
+    W, H = wh
+    rng = np.random.RandomState(seed)
+
+    def lin(grid, n_out, axis):
+        n_in = grid.shape[axis]
+        x = (np.arange(n_out, dtype=np.float32) + 0.5) * np.float32(n_in / n_out) - np.float32(0.5)
+        i0 = np.clip(np.floor(x).astype(np.int64), 0, n_in - 1)
+        f = np.clip(x - i0, 0, 1).astype(np.float32)
+        f = f[:, None] if axis == 0 else f[None, :]
+        return (1 - f) * np.take(grid, i0, axis) + f * np.take(grid, np.minimum(i0 + 1, n_in - 1), axis)
+
+    def smooth(gh, gw):
+        return lin(lin(rng.rand(gh, gw).astype(np.float32), H, 0), W, 1)
+
+    v = (np.arange(H, dtype=np.float32) / H)[:, None]
+    u = (np.arange(W, dtype=np.float32) / W)[None, :]
+    horizon = 0.45 + 0.05 * np.sin(2 * np.pi * 1.5 * u + 0.3) + 0.02 * np.sin(2 * np.pi * 5 * u)
+    sky = v < horizon
+    s = np.clip(v / horizon, 0, 1)[..., None]
+    img = (1 - s) * np.array([0.25, 0.45, 0.85], np.float32) + s * np.array([0.6, 0.75, 0.95], np.float32)
+    cloud = np.clip((smooth(12, 16) - 0.55) * 2.5, 0, 1)[..., None]
+    img = img * (1 - cloud) + 0.95 * cloud
+    t = (0.6 * smooth(48, 64) + 0.4 * smooth(192, 256))[..., None]
+    ground = np.array([0.35, 0.3, 0.15], np.float32) + t * np.array([0.3, 0.25, 0.1], np.float32)
+    img = np.where(sky[..., None], img, ground) + 0.02 * (rng.rand(H, W, 3).astype(np.float32) - 0.5)
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+def fcn_resnet50_onnx(path: str, width: int = 64, blocks=(3, 4, 6, 3), classes: int = 21, seed: int = 0) -> dict:
+    """Write an `.onnx` with the layout of torchvision's fcn_resnet50 (from
+    seeded numpy weights, the port's `make_model`): a ResNet-50 with
+    dilation in its last two stages (output stride 8), the 2048->512 3x3
+    head and the 1024->256 auxiliary head, `classes` classes each, both
+    resized x8 (bilinear). Conv, BatchNormalization, Relu, MaxPool with
+    explicit strides, Add, Dropout, Resize; `width` 64 and `blocks` (3, 4,
+    6, 3) are the published sizes (35.3 M parameters, 35.4 M weights with
+    the BatchNorm statistics). Returns the file's sha256 and its count of
+    weights."""
+    import hashlib
+
+    from alicevision_tpu_torch.utils.onnx_rt import make_model, make_node
+
+    rng = np.random.RandomState(seed)
+    nodes, inits = [], {}
+
+    def conv(x, c_in, c_out, k, stride=1, dil=1, bias=False, name=""):
+        w = name + "_w"
+        inits[w] = (rng.randn(c_out, c_in, k, k) * np.sqrt(2.0 / (c_in * k * k))).astype(np.float32)
+        if bias:  # the classifier: zero mean over its (positive) inputs, so the labels follow the image
+            inits[w] -= inits[w].mean(axis=(1, 2, 3), keepdims=True)
+        ins = [x, w]
+        if bias:
+            inits[name + "_b"] = (0.01 * rng.randn(c_out)).astype(np.float32)
+            ins.append(name + "_b")
+        p = dil * (k - 1) // 2
+        nodes.append(make_node("Conv", ins, [name], kernel_shape=[k, k], strides=[stride, stride],
+                               dilations=[dil, dil], pads=[p, p, p, p]))
+        return name
+
+    def bn(x, c, gamma=1.0, name=""):
+        inits[name + "_s"] = (gamma * rng.uniform(0.5, 1.0, c)).astype(np.float32)
+        inits[name + "_b"] = (0.1 * rng.randn(c)).astype(np.float32)
+        inits[name + "_m"] = (0.1 * rng.randn(c)).astype(np.float32)
+        inits[name + "_v"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        nodes.append(make_node("BatchNormalization", [x] + [name + s for s in ("_s", "_b", "_m", "_v")], [name],
+                               epsilon=1e-5))
+        return name
+
+    def relu(x, name):
+        nodes.append(make_node("Relu", [x], [name]))
+        return name
+
+    def block(x, c_in, planes, stride, dil, down, name):
+        c_out = 4 * planes
+        y = relu(bn(conv(x, c_in, planes, 1, name=name + "_c1"), planes, name=name + "_n1"), name + "_r1")
+        y = relu(bn(conv(y, planes, planes, 3, stride, dil, name=name + "_c2"), planes, name=name + "_n2"), name + "_r2")
+        # a small last gain keeps the random residual stack's activations bounded
+        y = bn(conv(y, planes, c_out, 1, name=name + "_c3"), c_out, gamma=0.3, name=name + "_n3")
+        if down:
+            x = bn(conv(x, c_in, c_out, 1, stride, name=name + "_dc"), c_out, name=name + "_dn")
+        nodes.append(make_node("Add", [y, x], [name + "_add"]))
+        return relu(name + "_add", name + "_out"), c_out
+
+    x = relu(bn(conv("input", 3, width, 7, 2, name="stem"), width, name="stem_n"), "stem_r")
+    p = x + "_pool"
+    nodes.append(make_node("MaxPool", [x], [p], kernel_shape=[3, 3], strides=[2, 2], pads=[1, 1, 1, 1]))
+    x, c, dil = p, width, 1
+    stages = []
+    for s, (n, stride) in enumerate(zip(blocks, (1, 2, 2, 2))):
+        planes = width * 2 ** s
+        first_dil, d = dil, dil
+        if s >= 2:  # replace_stride_with_dilation=[False, True, True]
+            d, stride = dil * stride, 1
+        for b in range(n):
+            x, c_new = block(x, c, planes, stride if b == 0 else 1, first_dil if b == 0 else d,
+                             b == 0 and (stride != 1 or c != 4 * planes), f"l{s + 1}b{b}")
+            c = c_new
+        dil = d
+        stages.append((x, c))
+
+    def head(x, c_in, name):
+        mid = c_in // 4
+        y = relu(bn(conv(x, c_in, mid, 3, name=name + "_c"), mid, name=name + "_n"), name + "_r")
+        nodes.append(make_node("Dropout", [y], [name + "_d"]))
+        y = conv(name + "_d", mid, classes, 1, bias=True, name=name + "_cls")
+        nodes.append(make_node("Resize", [y, "", "up8"], [name + "_up"], mode="linear"))
+        return name + "_up"
+
+    inits["up8"] = np.asarray([1.0, 1.0, 8.0, 8.0], np.float32)
+    out = head(stages[3][0], stages[3][1], "head")
+    aux = head(stages[2][0], stages[2][1], "aux")
+    data = make_model(nodes, [("input", (1, 3, 512, 512))], [(out, (1, classes, 512, 512)),
+                                                             (aux, (1, classes, 512, 512))], inits,
+                      graph_name="fcn_resnet50")
+    with open(path, "wb") as f:
+        f.write(data)
+    return {"sha256": hashlib.sha256(data).hexdigest(), "weights": int(sum(v.size for k, v in inits.items()
+                                                                            if k != "up8"))}
+
+
+def tile_grid(hw, tile: int = AUX_TILE, overlap: int = AUX_OVERLAP) -> list:
+    """segment_tiled's tiles of an (H, W) image as (y0, y1, x0, x1)."""
+    H, W = hw
+    step = tile - overlap
+    return [(y0, min(y0 + tile, H), x0, min(x0 + tile, W))
+            for y0 in range(0, max(H - overlap, 1), step) for x0 in range(0, max(W - overlap, 1), step)]
+
+
+def fcn_tiles(photo: np.ndarray, picks=AUX["fcn_tiles"]) -> list:
+    """The picked tiles of segment_tiled's grid as NCHW float32 inputs."""
+    H, W = photo.shape[:2]
+    ys = sorted({t[0] for t in tile_grid((H, W))})
+    xs = sorted({t[2] for t in tile_grid((H, W))})
+    out = []
+    for iy, ix in picks:
+        y0, x0 = ys[iy], xs[ix]
+        t = photo[y0:min(y0 + AUX_TILE, H), x0:min(x0 + AUX_TILE, W), :3]
+        out.append(np.ascontiguousarray(np.transpose(t, (2, 0, 1))[None]))
+    return out
+
+
+def label_counts(logits: np.ndarray, classes: int) -> list:
+    """Per-class counts of the argmax labels of (1, K, h, w) logits."""
+    return np.bincount(np.argmax(logits[0], axis=0).reshape(-1), minlength=classes).tolist()
+
+
+def lidar_scan(origin, samples, seed: int) -> np.ndarray:
+    """One scanner station: `samples` (azimuth, elevation) rays over 360 x
+    120 degrees (elevation -60..60), ray-cast against the box world of
+    `utils/rendered.py` inside AUX_ROOM, with 2 mm of range noise. Returns
+    the (n_az * n_el, 3) hits in world coordinates, float64."""
+    from alicevision_tpu_torch.utils.rendered import _ray_box_t, default_boxes
+
+    n_az, n_el = samples
+    az = (np.arange(n_az) + 0.5) * 2 * np.pi / n_az
+    el = np.deg2rad(-60.0 + (np.arange(n_el) + 0.5) * 120.0 / n_el)
+    A, E = np.meshgrid(az, el, indexing="ij")
+    d = np.stack([np.cos(E) * np.cos(A), np.cos(E) * np.sin(A), np.sin(E)], -1).reshape(-1, 3)
+    o = np.asarray(origin, np.float64)
+    boxes = np.concatenate([default_boxes(), np.asarray([AUX_ROOM])])
+    t = _ray_box_t(np.broadcast_to(o, d.shape), d, boxes).min(-1)
+    t = t + 0.002 * np.random.RandomState(seed).randn(len(t))
+    return o + t[:, None] * d
+
+
+def make_lidar_inputs(work: str, samples=AUX["lidar"]["samples"], seed: int = AUX["lidar"]["seed"]) -> dict:
+    """The lidar chain's inputs under `work`/lidar_in: station 0 as an E57
+    in its scanner frame with its pose (AUX_E57_YAW_DEG about z, its
+    position), stations 1 and 2 as PLYs in world coordinates, and an input
+    set mixing the three. Returns their paths and the stations."""
+    from alicevision_tpu_torch.image.e57 import write_e57
+    from alicevision_tpu_torch.mvs.lidar import save_cloud_ply
+
+    d = os.path.join(work, "lidar_in")
+    os.makedirs(d, exist_ok=True)
+    scans = [lidar_scan(o, samples, seed + k) for k, o in enumerate(AUX_STATIONS)]
+    half = np.deg2rad(AUX_E57_YAW_DEG) / 2
+    q = (float(np.cos(half)), 0.0, 0.0, float(np.sin(half)))
+    c, s = np.cos(2 * half), np.sin(2 * half)
+    R = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    t = np.asarray(AUX_STATIONS[0], np.float64)
+    e57 = os.path.join(d, "station0.e57")
+    write_e57(e57, (scans[0] - t) @ R, pose=(q, t))
+    entries = [{"ply": "station0.e57"}]
+    for k in (1, 2):
+        save_cloud_ply(os.path.join(d, f"station{k}.ply"), scans[k])
+        entries.append({"ply": f"station{k}.ply", "origin": list(AUX_STATIONS[k])})
+    input_set = os.path.join(d, "input_set.json")
+    with open(input_set, "w") as f:
+        json.dump(entries, f)
+    return {"e57": e57, "input_set": input_set, "points_per_station": [len(p) for p in scans]}
+
+
+def lidar_chain(work: str, inputs: dict, cell: float) -> list:
+    """importE57 -> lidarMerging -> lidarDecimating -> lidarMeshing under
+    `work`, as (name, argv)."""
+    def w(*p):
+        return os.path.join(work, *p)
+
+    return [
+        ("importE57", ["--input", inputs["e57"], "--output", w("imported.json")]),
+        ("lidarMerging", ["--input", inputs["input_set"], "--output", w("merged.ply"), "--outputOrigins",
+                          w("merged_origins.npy")]),
+        ("lidarDecimating", ["--input", w("merged.ply"), "--origins", w("merged_origins.npy"), "--output",
+                             w("decimated.ply"), "--outputOrigins", w("decimated_origins.npy"), "--cellSize", str(cell)]),
+        ("lidarMeshing", ["--input", w("decimated.ply"), "--origins", w("decimated_origins.npy"), "--output",
+                          w("mesh.obj")]),
+    ]
+
+
+def lidar_report(run_dir: str, printed: dict) -> dict:
+    """The chain's counts and its mesh's distance to the box world's faces
+    (the room's too)."""
+    from alicevision_tpu_torch.mesh import load_obj
+    from alicevision_tpu_torch.utils.rendered import default_boxes
+
+    v, f = load_obj(os.path.join(run_dir, "mesh.obj"))
+    boxes = np.concatenate([default_boxes(), np.asarray([AUX_ROOM])])
+    dist = box_surface_distance(np.asarray(v, np.float64), boxes)
+    return {"imported": json.loads(printed["importE57"]), "merged": json.loads(printed["lidarMerging"]),
+            "decimated": json.loads(printed["lidarDecimating"]), "mesh": json.loads(printed["lidarMeshing"]),
+            "mesh_median_box_distance": float(np.median(dist)), "mesh_p90_box_distance": float(np.quantile(dist, 0.9))}
+
+
+def masking_chain(work: str, image_folder: str, photo: str, cfg=AUX) -> list:
+    """imageMasking: HSV and Otsu over the views' folder, and the sky of the
+    24 MP photograph grown and shrunk, under `work`, as (name, argv)."""
+    def w(*p):
+        return os.path.join(work, *p)
+
+    k = str(cfg["grow_shrink"])
+    return [
+        ("imageMasking", ["--input", image_folder, "--output", w("views_hsv"), "--hsvMin", cfg["views_hsv"][0],
+                          "--hsvMax", cfg["views_hsv"][1]]),
+        ("imageMasking", ["--input", image_folder, "--output", w("views_auto"), "--algorithm",
+                          "autoGrayscaleThreshold"]),
+        ("imageMasking", ["--input", photo, "--output", w("photo_sky_mask.png"), "--hsvMin", cfg["sky_hsv"][0],
+                          "--hsvMax", cfg["sky_hsv"][1], "--growRadius", k, "--shrinkRadius", k]),
+    ]
+
+
+def mask_counts(work: str) -> dict:
+    """The foreground pixels of each mask the masking chain wrote, and the
+    masks themselves."""
+    from alicevision_tpu_torch.image.io import read_image
+
+    masks = {}
+    for sub in ("views_hsv", "views_auto"):
+        for f in sorted(os.listdir(os.path.join(work, sub))):
+            masks[f"{sub}/{f}"] = read_image(os.path.join(work, sub, f)) > 0.5
+    masks["photo_sky_mask.png"] = read_image(os.path.join(work, "photo_sky_mask.png")) > 0.5
+    return masks
+
+
+def gained_scene(cli_dir: str, out: str, cfg=AUX["gains"]) -> dict:
+    """The cli phase's views under known gains and offsets: each image
+    times g_v plus o_v (view 0 too), clipped to [0, 1], as `.npy` under
+    `out`, and cameraInit.sfm with its views pointing there. Returns the
+    scene's path, the gains and offsets, and the clean images' paths."""
+    sc = sfmdata.load(os.path.join(cli_dir, "cameraInit.sfm"))
+    rng = np.random.RandomState(cfg["seed"])
+    g = rng.uniform(*cfg["gain"], sc.n_views)
+    o = rng.uniform(*cfg["offset"], sc.n_views)
+    os.makedirs(out, exist_ok=True)
+    clean = list(sc.view_paths)
+    paths = []
+    for v in range(sc.n_views):
+        img = np.load(clean[v]).astype(np.float32)
+        p = os.path.join(out, os.path.basename(clean[v]))
+        np.save(p, np.clip(img * np.float32(g[v]) + np.float32(o[v]), 0.0, 1.0).astype(np.float32))
+        paths.append(p)
+    sc.view_paths = paths
+    sfm = os.path.join(out, "gained.sfm")
+    sfmdata.save(sc, sfm)
+    return {"sfm": sfm, "gain": g.tolist(), "offset": o.tolist(), "clean": clean, "view_ids": sc.view_ids.tolist()}
+
+
+def harmonize_recovery(out_dir: str, gained: dict) -> dict:
+    """How well sfmColorHarmonize's images undo the gains: each output
+    fitted as a_v * clean + b_v over its unclipped pixels; with view 0 the
+    gauge, a_v / a_0 - 1 and b_v - b_0 are the errors left."""
+    from alicevision_tpu_torch.image.io import read_image
+
+    a, b = [], []
+    for vid, clean in zip(gained["view_ids"], gained["clean"]):
+        h = read_image(os.path.join(out_dir, f"{int(vid)}.png")).astype(np.float64).reshape(-1)
+        x = np.load(clean).astype(np.float64).reshape(-1)
+        ok = (h > 0.02) & (h < 0.98)
+        A = np.stack([x[ok], np.ones(ok.sum())], 1)
+        (av, bv), *_ = np.linalg.lstsq(A, h[ok], rcond=None)
+        a.append(av)
+        b.append(bv)
+    rel = np.asarray(a) / a[0] - 1.0
+    off = np.asarray(b) - b[0]
+    return {"gain_rel_err": rel.tolist(), "offset_err": off.tolist(), "max_gain_rel_err": float(np.abs(rel).max()),
+            "max_offset_err": float(np.abs(off).max()), "unharmonized_max_gain_rel_err": float(
+                np.abs(np.asarray(gained["gain"]) / gained["gain"][0] - 1).max())}
+
+
+def fcn_tile_readings(fcn_path: str, photo: np.ndarray, dev, classes: int) -> dict:
+    """The FCN on the picked tiles on `dev` and on the CPU, in this process:
+    the largest logit difference against the tiles' largest |logit|, the
+    share of pixels whose argmax labels agree, and each side's per-class
+    label counts."""
+    from alicevision_tpu_torch.utils.onnx_rt import OnnxModel
+
+    tiles = fcn_tiles(photo)
+    out = {"tiles": [list(t.shape[2:]) for t in tiles]}
+    logits = {}
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        net = OnnxModel(fcn_path, device=d)
+        logits[tag] = [net(t)[0].cpu().numpy() for t in tiles]  # output 0: the main head
+        out[f"{tag}_seconds"] = time.perf_counter() - t0
+        out[f"{tag}_label_counts"] = [label_counts(z, classes) for z in logits[tag]]
+    scale = max(float(np.abs(z).max()) for z in logits["cpu"])
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(logits["card"], logits["cpu"]))
+    agree = [float((np.argmax(a[0], 0) == np.argmax(b[0], 0)).mean()) for a, b in zip(logits["card"], logits["cpu"])]
+    out.update(logit_scale=scale, max_abs_logit_diff=diff, max_rel_logit_diff=diff / scale, label_agreement=agree)
+    return out
+
+
+def run_aux_phase(dev, work: str, cli_dir: str, image_folder: str, smi: str = "", cfg=AUX) -> dict:
+    """The aux phase on the card `dev` (or on the CPU, for the tests): its
+    inputs under `work`/aux, each command through `cli.main` on `dev` and on
+    the CPU (the FCN's segmentation on `dev` only), with the SGM launches
+    counted from 0. `cli_dir` holds the cli phase's cameraInit.sfm,
+    features/ and matches.npz; `image_folder` the dense scene's views.
+    Returns the row."""
+    from alicevision_tpu_torch.image.io import read_image
+    from alicevision_tpu_torch.misc import segmentation
+    from alicevision_tpu_torch.pipeline.cli import main
+
+    cuda = torch.device(dev).type == "cuda"
+    sgm_kernel.launches.update(dict.fromkeys(sgm_kernel.launches, 0))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    ax = os.path.join(work, "aux")
+    os.makedirs(ax, exist_ok=True)
+
+    t0 = time.perf_counter()
+    photo = aux_photo(cfg["photo_wh"], seed=0)
+    photo_path, photo24 = os.path.join(ax, "photo.npy"), os.path.join(ax, "photo24.npy")
+    np.save(photo_path, photo)
+    np.save(photo24, aux_photo(cfg["mask_photo_wh"], seed=1))
+    fcn_path = os.path.join(ax, "fcn_resnet50.onnx")
+    fcn = fcn_resnet50_onnx(fcn_path, **cfg["fcn"])
+    lidar_in = make_lidar_inputs(ax, cfg["lidar"]["samples"], cfg["lidar"]["seed"])
+    gained = gained_scene(cli_dir, os.path.join(ax, "gained"), cfg["gains"])
+    inputs_s = time.perf_counter() - t0
+
+    rows, printed = {}, {}
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        out = os.path.join(ax, f"run_{tag}")
+        os.makedirs(out, exist_ok=True)
+        chain = masking_chain(out, image_folder, photo24, cfg)
+        chain.append(("sfmColorHarmonize", ["--input", gained["sfm"], "--features", os.path.join(cli_dir, "features"),
+                                            "--matches", os.path.join(cli_dir, "matches.npz"), "--imagesFolder",
+                                            os.path.dirname(gained["sfm"]), "--output", os.path.join(out, "harmonized")]))
+        chain += lidar_chain(out, lidar_in, cfg["lidar"]["cell"])
+        if tag == "card":
+            chain += [("imageSegmentation", ["--input", photo_path, "--output", os.path.join(out, "sky_mask.png")]),
+                      ("imageSegmentation", ["--input", photo_path, "--modelPath", fcn_path, "--output",
+                                             os.path.join(out, "fcn_mask.png")])]
+        printed[tag] = {}
+        # the scores imageSegmentation computes, kept as it computes them
+        scores, tiled = [], segmentation.segment_tiled
+
+        def keeping(*a, **k):
+            scores.append(tiled(*a, **k))
+            return scores[-1]
+
+        segmentation.segment_tiled = keeping
+        try:
+            rows[tag] = run_chain(_printing(main, printed[tag]), chain, "aux", ("--device", str(d)),
+                                  d if cuda and tag == "card" else None)
+        finally:
+            segmentation.segment_tiled = tiled
+        if tag == "card":
+            labels = np.argmax(scores[-1], axis=-1)  # the FCN's, over the whole photograph
+            del scores
+    card, cpu = (os.path.join(ax, f"run_{t}") for t in ("card", "cpu"))
+
+    masks = {t: mask_counts(os.path.join(ax, f"run_{t}")) for t in ("card", "cpu")}
+    mask_row = {"counts": {k: int(m.sum()) for k, m in masks["card"].items()},
+                "pixels": {k: int(m.size) for k, m in masks["card"].items()},
+                "card_cpu_differ": sorted(k for k in masks["card"] if not np.array_equal(masks["card"][k],
+                                                                                          masks["cpu"].get(k)))}
+    harm = {t: harmonize_recovery(os.path.join(ax, f"run_{t}", "harmonized"), gained) for t in ("card", "cpu")}
+    harm["card_cpu_max_abs_diff"] = max(
+        float(np.abs(read_image(os.path.join(card, "harmonized", f)) - read_image(os.path.join(cpu, "harmonized", f))).max())
+        for f in sorted(os.listdir(os.path.join(card, "harmonized"))))
+    harm["true"] = {"gain": gained["gain"], "offset": gained["offset"]}
+
+    lidar_files = ["imported.json", "imported_scan0.ply", "merged.ply", "merged_origins.npy", "decimated.ply",
+                   "decimated_origins.npy", "mesh.obj"]
+    lidar = lidar_report(card, printed["card"])
+    lidar["card_cpu_differ"] = [f for f in lidar_files
+                                if tree_bytes(os.path.join(card, f)) != tree_bytes(os.path.join(cpu, f))]
+    lidar["printed_differ"] = [n for n in ("importE57", "lidarMerging", "lidarDecimating", "lidarMeshing")
+                               if printed["card"][n] != printed["cpu"][n]]
+    lidar["points_per_station"] = lidar_in["points_per_station"]
+
+    # the FCN's labels over the whole photograph (the CLI masks class 0),
+    # and two of its tiles card against CPU
+    classes = cfg["fcn"]["classes"]
+    fcn_mask = read_image(os.path.join(card, "fcn_mask.png")) > 0.5
+    seg = {"sky_classical_count": int((read_image(os.path.join(card, "sky_mask.png")) > 0.5).sum()),
+           "fcn": {**fcn, "image": list(photo.shape[:2]), "tiles_in_grid": len(tile_grid(photo.shape[:2])),
+                   "label_counts": np.bincount(labels.reshape(-1), minlength=classes).tolist(),
+                   "mask_count": int(fcn_mask.sum()), "mask_is_class0": bool(np.array_equal(fcn_mask, labels == 0)),
+                   "tiles": fcn_tile_readings(fcn_path, photo, dev, classes)}}
+    commands = {t: {k: {"seconds": v["seconds"], "device_peak_gib": v["device_peak_gib"]} for k, v in rows[t].items()}
+                for t in rows}
+    return {"card": smi, "inputs_s": inputs_s, "commands": commands, "masks": mask_row, "segmentation": seg,
+            "harmonize": harm, "lidar": lidar, "sgm_launches": dict(sgm_kernel.launches),
+            "device_peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+# The JAX chain's readings on the same inputs (scripts/aux_reference.py, JAX
+# on the CPU; the features and matches of the harmonization are its own
+# cli front's): the masks' foreground counts, the sky scorer's, the FCN
+# file's sha256 and its two tiles' per-class label counts (with the port's
+# CPU logits against JAX's there), the harmonization's recovery, and the
+# lidar chain's counts and mesh.
+AUX_REFERENCE = {
+    "mask_counts": {
+        "views_hsv/1_mask.png": 1176540,
+        "views_hsv/2_mask.png": 1175273,
+        "views_hsv/3_mask.png": 1174300,
+        "views_hsv/4_mask.png": 1174276,
+        "views_hsv/5_mask.png": 1174214,
+        "views_hsv/6_mask.png": 1175905,
+        "views_hsv/7_mask.png": 1176035,
+        "views_hsv/8_mask.png": 1177495,
+        "views_auto/1_mask.png": 1083416,
+        "views_auto/2_mask.png": 1079338,
+        "views_auto/3_mask.png": 1076484,
+        "views_auto/4_mask.png": 1078454,
+        "views_auto/5_mask.png": 1079122,
+        "views_auto/6_mask.png": 1083640,
+        "views_auto/7_mask.png": 1084587,
+        "views_auto/8_mask.png": 1085839,
+        "photo_sky_mask.png": 10401495,
+    },
+    "sky_classical_count": 5514139,
+    "fcn_sha256": "6dac87d703721580f6acdb5653f7db330af5a23141eea47f43466e67e9361d62",
+    "fcn_tiles": {
+        "tiles": [[512, 512], [312, 416]],
+        "jax_label_counts": [
+            [28, 0, 0, 34, 0, 0, 25, 0, 254431, 0, 4031, 0, 0, 0, 0, 3434, 99, 0, 40, 22, 0],
+            [0, 0, 0, 50, 0, 0, 30, 0, 122906, 0, 4265, 0, 76, 0, 0, 2339, 82, 0, 44, 0, 0],
+        ],
+        "port_cpu_label_counts": [
+            [28, 0, 0, 34, 0, 0, 25, 0, 254431, 0, 4031, 0, 0, 0, 0, 3434, 99, 0, 40, 22, 0],
+            [0, 0, 0, 50, 0, 0, 30, 0, 122906, 0, 4265, 0, 76, 0, 0, 2339, 82, 0, 44, 0, 0],
+        ],
+        "port_cpu_label_agreement": [1.0, 1.0],
+        "port_cpu_max_abs_logit_diff": 1.2218952178955078e-06,
+        "logit_scale": 0.7761886715888977,
+    },
+    "harmonize": {"max_gain_rel_err": 0.009524602630338386, "max_offset_err": 0.004214075956909556,
+                  "unharmonized_max_gain_rel_err": 0.19992040871915417},
+    "lidar": {"merged": {"points": 1572864, "scans": 3}, "decimated": {"points": 233368},
+              "mesh": {"vertices": 38685, "faces": 106489}, "mesh_median_box_distance": 0.0009357523302382376,
+              "mesh_p90_box_distance": 0.0017201660652538919},
+}
+# Gates: a reading may be this much worse than the JAX package's
+AUX_GATES = dict(gain_factor=2.0, gain_slack=0.005, offset_slack=0.005, mesh_factor=1.25, mesh_slack_m=0.002,
+                 label_count_factor=3.0, label_count_slack_px=16, decimated=(150_000, 400_000))
+
+
+def aux_gates(ref=None, g=AUX_GATES) -> dict:
+    """Each gate of the phase with the JAX reading it comes from."""
+    ref = AUX_REFERENCE if ref is None else ref
+    h = ref["harmonize"]
+    tiles = ref["fcn_tiles"]
+    # the port's CPU labels against JAX's on the same tiles, per class
+    spread = max(abs(a - b) for p, j in zip(tiles["port_cpu_label_counts"], tiles["jax_label_counts"])
+                 for a, b in zip(p, j))
+    return {
+        "mask_counts": ref["mask_counts"],
+        "sky_classical_count": ref["sky_classical_count"],
+        "fcn_sha256": ref["fcn_sha256"],
+        "fcn_label_count_max_diff": {"max": int(g["label_count_factor"] * spread + g["label_count_slack_px"]),
+                                     "jax": tiles["jax_label_counts"], "port_cpu_against_jax": spread},
+        "fcn_label_agreement_min": {"min": min(tiles["port_cpu_label_agreement"]) - 0.01,
+                                    "port_cpu_against_jax": tiles["port_cpu_label_agreement"]},
+        "fcn_logit_rel_diff_max": AUX_FCN_LOGIT_TOL,
+        "harmonize_max_gain_rel_err": max(g["gain_factor"] * h["max_gain_rel_err"], h["max_gain_rel_err"] + g["gain_slack"]),
+        "harmonize_max_offset_err": max(g["gain_factor"] * h["max_offset_err"], h["max_offset_err"] + g["offset_slack"]),
+        "harmonize_jax": h,
+        "lidar_merged_points": ref["lidar"]["merged"],
+        "lidar_decimated_points": ref["lidar"]["decimated"],
+        "lidar_decimated_range": g["decimated"],
+        "lidar_mesh_median_box_distance_max": g["mesh_factor"] * ref["lidar"]["mesh_median_box_distance"]
+        + g["mesh_slack_m"],
+        "lidar_jax": ref["lidar"],
+    }
+
+
+def aux_misses(row: dict, ref=None, g=AUX_GATES) -> list:
+    """The phase's gates against its row."""
+    gates, bad = aux_gates(ref, g), []
+    m = row["masks"]
+    if m["card_cpu_differ"]:
+        bad.append(f"imageMasking: the card's masks differ from the CPU's: {m['card_cpu_differ']}")
+    if m["counts"] != gates["mask_counts"]:
+        diff = {k: (v, gates["mask_counts"].get(k)) for k, v in m["counts"].items() if gates["mask_counts"].get(k) != v}
+        bad.append(f"imageMasking: foreground counts differ from the JAX package's (card, JAX): {diff}")
+    s = row["segmentation"]
+    if s["sky_classical_count"] != gates["sky_classical_count"]:
+        bad.append(f"imageSegmentation: the sky scorer's mask holds {s['sky_classical_count']} pixels, the JAX "
+                   f"package's {gates['sky_classical_count']}")
+    f = s["fcn"]
+    t = f["tiles"]
+    if f["sha256"] != gates["fcn_sha256"]:
+        bad.append(f"FCN: the .onnx file's sha256 {f['sha256']} is not the reference's {gates['fcn_sha256']}")
+    if not f["mask_is_class0"]:
+        bad.append("FCN: imageSegmentation's mask is not the pixels labelled class 0")
+    if not t["max_rel_logit_diff"] <= gates["fcn_logit_rel_diff_max"]:
+        bad.append(f"FCN tiles: the card's logits are {t['max_abs_logit_diff']} from the CPU's at a logit scale of "
+                   f"{t['logit_scale']}, expected <= {gates['fcn_logit_rel_diff_max']} of it")
+    if not min(t["label_agreement"]) >= gates["fcn_label_agreement_min"]["min"]:
+        bad.append(f"FCN tiles: the card's labels agree with the CPU's on {t['label_agreement']}, expected >= "
+                   f"{gates['fcn_label_agreement_min']}")
+    lc = gates["fcn_label_count_max_diff"]
+    worst = max(abs(a - b) for c, j in zip(t["card_label_counts"], lc["jax"]) for a, b in zip(c, j))
+    if not worst <= lc["max"]:
+        bad.append(f"FCN tiles: a class's label count is {worst} pixels from the JAX package's, expected <= "
+                   f"{lc['max']} (port CPU against JAX: {lc['port_cpu_against_jax']})")
+    h = row["harmonize"]["card"]
+    if not (h["max_gain_rel_err"] <= gates["harmonize_max_gain_rel_err"]
+            and h["max_offset_err"] <= gates["harmonize_max_offset_err"]):
+        bad.append(f"sfmColorHarmonize: gains {h['max_gain_rel_err']} and offsets {h['max_offset_err']} off after "
+                   f"harmonizing, expected <= {gates['harmonize_max_gain_rel_err']} and "
+                   f"{gates['harmonize_max_offset_err']} (JAX {gates['harmonize_jax']})")
+    li = row["lidar"]
+    if li["card_cpu_differ"] or li["printed_differ"]:
+        bad.append(f"lidar: the card's outputs differ from the CPU's: {li['card_cpu_differ'] + li['printed_differ']}")
+    lo, hi = gates["lidar_decimated_range"]
+    if li["merged"] != gates["lidar_merged_points"] or li["decimated"] != gates["lidar_decimated_points"] \
+            or not lo <= li["decimated"]["points"] <= hi:
+        bad.append(f"lidar: merged {li['merged']} and decimated {li['decimated']}, expected the JAX package's "
+                   f"{gates['lidar_merged_points']} and {gates['lidar_decimated_points']} in {lo}..{hi}")
+    if not li["mesh_median_box_distance"] <= gates["lidar_mesh_median_box_distance_max"]:
+        bad.append(f"lidar: the mesh's median distance to the box world is {li['mesh_median_box_distance']}, "
+                   f"expected <= {gates['lidar_mesh_median_box_distance_max']} (JAX {gates['lidar_jax']})")
+    if any(row["sgm_launches"].values()):
+        bad.append(f"the aux path launched SGM kernels: {row['sgm_launches']}")
+    return bad
+
+
+def check_aux(dev, work: str, smi: str) -> tuple:
+    """The aux phase on the dense phase's views and the cli phase's outputs,
+    and its gates. Returns (the row, its SGM launches, all 0)."""
+    row = run_aux_phase(dev, work, os.path.join(work, "cli"), os.path.join(work, "images"), smi=smi)
+    row["gates"] = aux_gates()
+    bad = aux_misses(row)
+    if bad:
+        raise RuntimeError("aux: " + "; ".join(bad))
+    return row, row["sgm_launches"]
+
+
 def kernels_line(rows: list, agg_rows: list, launches: dict) -> dict:
     """The `kernels` entry of the SGM kernel, named after the entry the main
     path launches. Its numbers are one 640x480 D = 96 map's two
@@ -4595,6 +5214,10 @@ def main(argv=None) -> int:
         # 8e. the front-end extras and item 13 (a)'s subcommands on the cli
         # phase's outputs
         extras_row, extras_launches = check_extras(dev, work, smi)
+
+        # 8f. item 13 (d)'s subcommands: masking, segmentation through the
+        # ONNX executor, colour harmonization and the lidar chain
+        aux_row, aux_launches = check_aux(dev, work, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4614,8 +5237,9 @@ def main(argv=None) -> int:
     print(json.dumps({"solvers": solvers}), flush=True)
     print(json.dumps({"calibration": cal_row}), flush=True)
     print(json.dumps({"extras": extras_row}), flush=True)
+    print(json.dumps({"aux": aux_row}), flush=True)
     launches = {k: launches[k] + pipe_launches[k] + full_launches[k] + cli_launches[k] + pano_launches[k]
-                + loc_launches[k] + cal_launches[k] + extras_launches[k] for k in launches}
+                + loc_launches[k] + cal_launches[k] + extras_launches[k] + aux_launches[k] for k in launches}
     print(json.dumps({"kernels": [kernels_line(rows, agg_rows, launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

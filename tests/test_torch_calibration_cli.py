@@ -250,16 +250,12 @@ def test_normal_integration_and_lighting_estimation_match(chain, tmp_path):
 
 
 def test_calibration_subcommands_run():
-    """96 of the 103 subcommands run; the other 7 exit 1 naming ROADMAP
-    item 13."""
+    """All 103 subcommands have a handler; none is a stub."""
     from alicevision_tpu_torch.pipeline import cli_ext
 
     sub = next(a for a in tcli.build_parser()._actions if a.dest == "cmd").choices
-    unported = [n for n, p in sub.items()
-                if (p._defaults.get("_handler") or tcli._HANDLERS.get(n, cli_ext._not_ported)) is cli_ext._not_ported]
-    assert len(sub) == 103 and len(unported) == 7, unported
-    assert sorted(unported) == sorted(["imageMasking", "imageSegmentation", "sfmColorHarmonize", "lidarMerging",
-                                       "lidarDecimating", "lidarMeshing", "importE57"])
+    unported = [n for n, p in sub.items() if (p._defaults.get("_handler") or tcli._HANDLERS.get(n)) is None]
+    assert len(sub) == 103 and unported == [] and not hasattr(cli_ext, "_not_ported")
     for name in ("checkerboardDetection", "cameraCalibration", "distortionCalibration", "convertDistortion",
                  "exportDistortion", "photometricStereo", "normalIntegration", "lightingEstimation",
                  "lightingCalibration", "sphereDetection", "colorCheckerDetection", "colorCheckerCorrection",

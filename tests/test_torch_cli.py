@@ -15,9 +15,9 @@ JAX package's, on the CPU.
   of ~100 px coordinates ~1e-5 px apart.
 - In a subprocess, as a farm runs it (tests/test_torch_cli_subprocess.py):
   an empty range exits 0, a missing input exits non-zero with a `fatal`
-  line and no traceback, an unported subcommand exits 1 naming ROADMAP
-  item 13, and without `--device cpu` on a machine with no card the
-  command fails with the no-CUDA message.
+  line and no traceback, lidarMerging and importE57 run and print their
+  JSON, and without `--device cpu` on a machine with no card the command
+  fails with the no-CUDA message.
 """
 
 import json

@@ -19,7 +19,7 @@ triangulated at the true poses (computeStructureFromKnownPoses).
   the port's own modules (the CLI's first query equals `localize_image`
   with the generator the CLI seeds); the modules are held to the JAX ones
   in tests/test_torch_localization.py.
-- 96 of the 103 subcommands run; the other 7 exit 1 naming ROADMAP item 13.
+- all 103 subcommands have a handler.
 """
 
 import contextlib
@@ -361,9 +361,8 @@ def test_rig_calibration_and_sample_scene_match_reference(db, tool_inputs, tmp_p
 def test_subcommands_ported_count():
     ap = tcli.build_parser()
     sub = next(a for a in ap._actions if a.dest == "cmd").choices
-    unported = [n for n, p in sub.items()
-                if (p._defaults.get("_handler") or tcli._HANDLERS.get(n, cli_ext._not_ported)) is cli_ext._not_ported]
-    assert len(sub) == 103 and len(unported) == 7
+    unported = [n for n, p in sub.items() if (p._defaults.get("_handler") or tcli._HANDLERS.get(n)) is None]
+    assert len(sub) == 103 and unported == [] and not hasattr(cli_ext, "_not_ported")
     for name in ("cameraLocalization", "rigCalibration", "rigTransform", "rigLocalization", "sfmToRig",
                  "frustumFiltering", "sfmTransfer", "applyCalibration", "sfmDistances", "sfmRegression", "sfmMerge",
                  "sfmSplitReconstructed", "generateSampleScene"):

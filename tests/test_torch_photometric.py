@@ -99,7 +99,7 @@ def test_sh_lighting_matches(shoot):
     np.testing.assert_allclose(got.numpy()[[0, 1, 3]], np.asarray(want)[[0, 1, 3]], atol=2e-3)
 
 
-def test_light_calibration_and_sphere_detection_match(shoot):
+def test_light_calibration_and_sphere_detection_match(shoot, tmp_path):
     cx, cy, r = shoot["sphere_cxr"]
     sphere = shoot["sphere"]
     det = sd.detect_sphere(sphere[0], r_min=12, r_max=36)
@@ -109,8 +109,22 @@ def test_light_calibration_and_sphere_detection_match(shoot):
     want = jlc.calibrate_lights(sphere, (cx, cy, r))
     np.testing.assert_allclose(got, want, atol=1e-6)
     np.testing.assert_allclose(lc.sphere_normal_at(cx, cy, r, 30.0, 40.0), jlc.sphere_normal_at(cx, cy, r, 30.0, 40.0))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sd.detect_sphere_onnx(sphere[0], "model.onnx")
+    # the ONNX route: a 1x1 conv + sigmoid scorer of the bright sphere over the grey image
+    from alicevision_tpu_torch.utils.onnx_rt import make_model, make_node
+
+    data = make_model([make_node("Conv", ["x", "w", "b"], ["d"], kernel_shape=[1, 1]),
+                       make_node("Sigmoid", ["d"], ["y"])], [("x", (1, 1) + sphere.shape[1:])],
+                      [("y", (1, 1) + sphere.shape[1:])],
+                      {"w": np.full((1, 1, 1, 1), 40.0, np.float32), "b": np.asarray([-40.0 * float(
+                          np.median(sphere[0]))], np.float32)})
+    model = str(tmp_path / "sphere.onnx")
+    with open(model, "wb") as f:
+        f.write(data)
+    got = sd.detect_sphere_onnx(sphere[0], model, threshold=0.5, device="cpu")
+    want = jsd.detect_sphere_onnx(sphere[0], model, threshold=0.5)
+    assert got is not None and want is not None
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    assert np.hypot(got[0] - cx, got[1] - cy) < 0.25 * r
 
 
 def test_color_checker_matches():
