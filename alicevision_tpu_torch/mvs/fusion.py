@@ -56,13 +56,14 @@ def _sample_nearest(img: torch.Tensor, uv: torch.Tensor, fill: float):
     return torch.where(ok, v, torch.full_like(v, fill)), ok
 
 
-def _consistent_counts(depths, K, R, c, r, others, rel_tol):
-    """How many of the views `others` confirm each pixel of view r."""
-    Xw = backproject_depth_map(depths[r], K[r], R[r], c[r])  # (H, W, 3)
-    counts = torch.zeros(depths.shape[1:], dtype=torch.int32, device=depths.device)
-    for o in others:
-        uv, z_proj = project_points(Xw, K[o], R[o], c[o])
-        d_other, inside = _sample_nearest(depths[o], uv, -1.0)
+def _counts_against(depth, K, R, c, others, rel_tol):
+    """How many of `others`, (depth map, K, R, c) of other views, confirm
+    each pixel of the (H, W) `depth` seen by camera (K, R, c)."""
+    Xw = backproject_depth_map(depth, K, R, c)  # (H, W, 3)
+    counts = torch.zeros(depth.shape, dtype=torch.int32, device=depth.device)
+    for d_o, K_o, R_o, c_o in others:
+        uv, z_proj = project_points(Xw, K_o, R_o, c_o)
+        d_other, inside = _sample_nearest(d_o, uv, -1.0)
         counts += (
             inside
             & (d_other > 0)
@@ -72,9 +73,19 @@ def _consistent_counts(depths, K, R, c, r, others, rel_tol):
     return counts
 
 
+def _consistent_counts(depths, K, R, c, r, others, rel_tol):
+    """How many of the views `others` confirm each pixel of view r."""
+    return _counts_against(depths[r], K[r], R[r], c[r], ((depths[o], K[o], R[o], c[o]) for o in others),
+                           rel_tol)
+
+
+def _keep_map(depth, counts, min_consistent):
+    valid = (depth > 0) & (counts + 1 >= min_consistent)
+    return torch.where(valid, depth, torch.full_like(depth, -1.0))
+
+
 def _keep(depths, r, counts, min_consistent):
-    valid = (depths[r] > 0) & (counts + 1 >= min_consistent)
-    return torch.where(valid, depths[r], torch.full_like(depths[r], -1.0))
+    return _keep_map(depths[r], counts, min_consistent)
 
 
 def consistency_filter(

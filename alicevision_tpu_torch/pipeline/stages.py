@@ -757,11 +757,11 @@ def _tiled_depth_map(
     SfM-seeded depth list from the landmarks observed inside it (full-size
     pixel ROI), a shifted principal point and the full T-cam images; the
     tiles merge with Hann weights on the host (mapIO addTileMapWeighted).
-    Uniform clamped tiles take the rectified path only if every pair passes
-    the gate, else all take the gather path; other tiles gate per pair."""
+    With more than one tile every tile takes the gather sweep, since the
+    rectified sweep misses on a crop off the image's centre (ROADMAP.md §3);
+    one ROI keeps `params.method`."""
     from ..mvs import plane_sweep as ps
     from ..mvs.depth_list import sgm_depth_list
-    from ..mvs.rectified import rectification_ok
     from ..mvs.sharded import make_tiles, merge_tiles
 
     def t(a):
@@ -785,9 +785,8 @@ def _tiled_depth_map(
         depth_lists.append(np.asarray(dl_t.depths, np.float32))
         tc_lists.append(_tc_ranges(dl_t, n_depths))
     R_t, tr_t = t(R_rel), t(t_rel)
-    if len({c.shape for c in crops}) == 1 and len(rois) > 1:
-        ok = all(rectification_ok(R_rel[i], t_rel[i]) for i in range(R_rel.shape[0]))
-        params = params._replace(method="rectified" if ok else "gather")
+    if len(rois) > 1:
+        params = params._replace(method="gather")
     tiles = []
     for roi, crop, Kc, dlist, tc in zip(rois, crops, Kcs, depth_lists, tc_lists):
         d_t, _ = ps.sgm_depth_map(

@@ -461,11 +461,22 @@ def _live_masks(problem, dtype):
     return mT, live_cam, live_pt
 
 
-def _schur_prelude(problem, r, Jc, Jl, lam) -> _SchurParts:
+def _reduce_sum(reduce, *ts):
+    """`reduce` (a sum across ranks) of several tensors in one call."""
+    flat = reduce(torch.cat([t.reshape(-1) for t in ts]))
+    return [p.reshape(t.shape) for p, t in zip(flat.split([t.numel() for t in ts]), ts)]
+
+
+def _schur_prelude(problem, r, Jc, Jl, lam, reduce=None) -> _SchurParts:
     """Eliminate the landmark blocks and build everything both reduced-camera
     solvers share. Per-landmark block algebra (V, W, the chol(V^-1)
     elimination) is elementwise over (K, L) planes; per-camera reductions go
-    through _accum_cams."""
+    through _accum_cams.
+
+    With `reduce` (a sum over ranks that each hold a block of the
+    landmarks, `parallel/ba_sharded.py`), the camera-sized sums U, g_c and
+    b are summed across ranks in one call before U is damped, so the
+    damping counts once."""
     C = problem.cam_q.shape[0]
     ocT = problem.obs_cam.T  # (K, L)
     mT, live_cam, live_pt = _live_masks(problem, r.dtype)
@@ -485,7 +496,7 @@ def _schur_prelude(problem, r, Jc, Jl, lam) -> _SchurParts:
     # U: 21 unique components of J_c^T J_c per camera; g_c.
     ii, jj = _iu_index(r.device)
     JJ = Jc[0, ii] * Jc[0, jj] + Jc[1, ii] * Jc[1, jj]  # (21, K, L)
-    U = _sym6(_accum_cams(JJ, ocT, C))  # (C, 6, 6)
+    U21 = _accum_cams(JJ, ocT, C)  # (C, 21)
     Jr = Jc[0] * r[0] + Jc[1] * r[1]  # (6, K, L)
     g_c = -_accum_cams(Jr, ocT, C)  # (C, 6)
 
@@ -495,9 +506,6 @@ def _schur_prelude(problem, r, Jc, Jl, lam) -> _SchurParts:
         (i, j): V[(i, j)] * dampV + 1e-9 if i == j else V[(i, j)]
         for (i, j) in V
     }
-    eyeU = torch.eye(6, dtype=r.dtype, device=r.device)
-    U_d = U + lam * (U * eyeU) + 1e-9 * eyeU
-
     Vi = _sym3_inv_c(Vd[(0, 0)], Vd[(0, 1)], Vd[(0, 2)], Vd[(1, 1)], Vd[(1, 2)], Vd[(2, 2)])
     l11, l21, l31, l22, l32, l33 = _chol3_c(*Vi)  # V^-1 = Vh Vh^T (lower)
 
@@ -517,6 +525,11 @@ def _schur_prelude(problem, r, Jc, Jl, lam) -> _SchurParts:
     gls = _vh_t(l11, l21, l31, l22, l32, l33, g_l)  # (3, L)
     corr = Y[:, 0] * gls[0] + Y[:, 1] * gls[1] + Y[:, 2] * gls[2]  # (6, K, L)
     b = g_c - _accum_cams(corr, ocT, C)
+    if reduce is not None:
+        U21, g_c, b = _reduce_sum(reduce, U21, g_c, b)
+    U = _sym6(U21)  # (C, 6, 6)
+    eyeU = torch.eye(6, dtype=r.dtype, device=r.device)
+    U_d = U + lam * (U * eyeU) + 1e-9 * eyeU
 
     return _SchurParts(
         ocT=ocT, g_c=g_c, b=b, U_d=U_d, Vi=Vi,
@@ -563,9 +576,13 @@ def _elimination_factor(parts: _SchurParts, C: int):
     return B.reshape(C * 6, 3 * L)
 
 
-def _reduced_camera_matrix(parts: _SchurParts, Bm, C: int):
-    """S = blockdiag(U_d) - B B^T (6C x 6C), symmetric by construction."""
+def _reduced_camera_matrix(parts: _SchurParts, Bm, C: int, reduce=None):
+    """S = blockdiag(U_d) - B B^T (6C x 6C), symmetric by construction.
+    With `reduce`, -B B^T is summed over the ranks' landmark blocks before
+    the (already summed) damped diagonal is added."""
     S = -(Bm @ Bm.T)
+    if reduce is not None:
+        S = reduce(S)
     S.view(C, 6, C, 6).diagonal(dim1=0, dim2=2).add_(parts.U_d.permute(1, 2, 0))
     return S
 
@@ -579,15 +596,15 @@ def _chol_solve(S, rhs):
     return torch.where(info == 0, x, torch.full_like(x, float("nan")))
 
 
-def _schur_solve(problem, r, Jc, Jl, lam):
+def _schur_solve(problem, r, Jc, Jl, lam, reduce=None):
     """One damped Schur step via DENSE solve: (dx_cam (C,6), dx_pt (L,3)).
 
     S_off = -B B^T with B = W chol(V^-1) scattered per camera; suitable up
     to a few hundred cameras (ref: DENSE_SCHUR below 100 poses,
     BundleAdjustmentCeres.cpp:216-231)."""
     C = problem.cam_q.shape[0]
-    parts = _schur_prelude(problem, r, Jc, Jl, lam)
-    S = _reduced_camera_matrix(parts, _elimination_factor(parts, C), C)
+    parts = _schur_prelude(problem, r, Jc, Jl, lam, reduce)
+    S = _reduced_camera_matrix(parts, _elimination_factor(parts, C), C, reduce)
     S.diagonal().add_(1e-8)
     dx_cam = _chol_solve(S, parts.b.reshape(C * 6)).reshape(C, 6)
     return dx_cam, _back_substitute(parts, dx_cam)
@@ -656,17 +673,22 @@ def _schur_solve_joint(problem, r, Jc, Jl, Jt, lam, colmask=None):
     return dx_cam, _vi_apply(parts.Vi, parts.g_l - t), dtheta
 
 
-def _s_operator(parts: _SchurParts, C: int, dtype):
+def _s_operator(parts: _SchurParts, C: int, dtype, reduce=None):
     """(S_apply, M_apply) — the matrix-free reduced-camera operator and its
     SCHUR_JACOBI preconditioner, for x of shape (..., C, 6): a leading batch
-    of right-hand sides is solved at once."""
+    of right-hand sides is solved at once. With `reduce`, the landmark sums
+    (the preconditioner's once, each matvec's once) are summed across
+    ranks."""
     Y, U_d, ocT = parts.Y, parts.U_d, parts.ocT
 
     # SCHUR_JACOBI preconditioner: exact diagonal blocks of S (a landmark
     # observes each camera at most once).
     ii, jj = _iu_index(Y.device)
     YY = torch.sum(Y[ii] * Y[jj], dim=1)  # (21, K, L)
-    Sd = U_d - _sym6(_accum_cams(YY, ocT, C))
+    YY_c = _accum_cams(YY, ocT, C)
+    if reduce is not None:
+        YY_c = reduce(YY_c)
+    Sd = U_d - _sym6(YY_c)
     Sd = Sd + 1e-8 * torch.eye(6, dtype=dtype, device=Y.device)
     Minv = torch.linalg.inv_ex(Sd)[0]  # (C, 6, 6) batched tiny inverses
 
@@ -676,7 +698,10 @@ def _s_operator(parts: _SchurParts, C: int, dtype):
         # th[h] = sum_{k,i} Y[i][h] * x_obs[i] per landmark
         th = torch.sum(Y * xo[..., :, None, :, :], dim=(-4, -2))  # (..., 3, L)
         corr = torch.sum(Y * th[..., None, :, None, :], dim=-3)  # (..., 6, K, L)
-        return ux - _accum_cams(corr, ocT, C)
+        acc = _accum_cams(corr, ocT, C)
+        if reduce is not None:
+            acc = reduce(acc)
+        return ux - acc
 
     def M_apply(v):
         return torch.einsum("cij,...cj->...ci", Minv, v)
@@ -685,7 +710,7 @@ def _s_operator(parts: _SchurParts, C: int, dtype):
 
 
 def _schur_solve_pcg(problem, r, Jc, Jl, lam, cg_iters: int = 100, cg_tol: float = 1e-2,
-                     loop: str = "while", x_warm=None):
+                     loop: str = "while", x_warm=None, reduce=None):
     """Matrix-free PCG on the reduced camera system S dx = b.
 
     Never materializes S or B: each matvec streams the observation table
@@ -695,8 +720,8 @@ def _schur_solve_pcg(problem, r, Jc, Jl, lam, cg_iters: int = 100, cg_tol: float
     |res|^2 <= cg_tol^2 |b|^2 (one host read per CG iteration); "fori" runs
     exactly cg_iters iterations with convergence masking."""
     C = problem.cam_q.shape[0]
-    parts = _schur_prelude(problem, r, Jc, Jl, lam)
-    S_apply, M_apply = _s_operator(parts, C, r.dtype)
+    parts = _schur_prelude(problem, r, Jc, Jl, lam, reduce)
+    S_apply, M_apply = _s_operator(parts, C, r.dtype, reduce)
 
     b = parts.b
     tol2 = (cg_tol * cg_tol) * torch.sum(b * b) + 1e-30
@@ -739,8 +764,9 @@ def _robust_cost(problem, r, huber):
     return torch.sum(torch.where(problem.obs_mask.T, rho, 0.0))
 
 
-def _cost(problem, cam_q, cam_c, points, huber_delta):
-    return _robust_cost(problem, _residuals(problem, cam_q, cam_c, points), huber_delta)
+def _cost(problem, cam_q, cam_c, points, huber_delta, reduce=None):
+    cost = _robust_cost(problem, _residuals(problem, cam_q, cam_c, points), huber_delta)
+    return cost if reduce is None else reduce(cost.reshape(1)).reshape(())
 
 
 def _irls_weights(problem, r, huber):
@@ -804,23 +830,35 @@ def ba_solve(
     step falls below rtol; one host read per iteration, and one per CG
     iteration) or "unrolled" (exactly max_iters iterations, the CG exactly
     cg_iters with convergence masking; no host reads)."""
+    return _lm_solve(problem, max_iters, huber_delta_px, lam0, lam_up, lam_down, rtol, solver,
+                     cg_iters, cg_tol, loop)
+
+
+def _lm_solve(problem, max_iters, huber_delta_px, lam0, lam_up, lam_down, rtol, solver, cg_iters,
+              cg_tol, loop, reduce=None, n_landmarks=None) -> BAResult:
+    """ba_solve's LM loop. With `reduce` (a sum across ranks) `problem`
+    holds this rank's block of the landmarks (`parallel/ba_sharded.py`):
+    the costs and the camera-sized Schur sums are summed across ranks, so
+    every rank takes the same steps and leaves the loops together, and
+    "auto" picks the solver for `n_landmarks`, the landmarks of all
+    ranks."""
     C = problem.cam_q.shape[0]
-    L = problem.points.shape[0]
+    L = problem.points.shape[0] if n_landmarks is None else n_landmarks
     if solver == "auto":
         solver = _auto_solver(C, L)
     if solver == "dense":
-        schur = lambda *a, x_warm=None: _schur_solve(*a)  # noqa: E731
+        schur = lambda *a, x_warm=None: _schur_solve(*a, reduce=reduce)  # noqa: E731
     elif solver == "pcg":
         cg_loop = "while" if loop == "while" else "fori"
         schur = lambda *a, x_warm=None: _schur_solve_pcg(  # noqa: E731
-            *a, cg_iters=cg_iters, cg_tol=cg_tol, loop=cg_loop, x_warm=x_warm
+            *a, cg_iters=cg_iters, cg_tol=cg_tol, loop=cg_loop, x_warm=x_warm, reduce=reduce
         )
     else:
         raise ValueError(f"unknown solver {solver!r}")
 
     dev = problem.cam_c.device
     huber = torch.full((), huber_delta_px, dtype=torch.float32, device=dev)
-    cost0 = _cost(problem, problem.cam_q, problem.cam_c, problem.points, huber)
+    cost0 = _cost(problem, problem.cam_q, problem.cam_c, problem.points, huber, reduce)
 
     def body(state):
         q, c, X, lam, cost, it, done, dxp = state
@@ -832,7 +870,7 @@ def ba_solve(
         c_new = c + dx_cam[:, 3:6]
         X_new = X + dx_pt
 
-        new_cost = _cost(problem, q_new, c_new, X_new, huber)
+        new_cost = _cost(problem, q_new, c_new, X_new, huber, reduce)
         ok = torch.isfinite(new_cost) & (new_cost < cost)
         q, c, X = _lm_update(ok, (q_new, c_new, X_new), (q, c, X))
         lam = torch.clamp(torch.where(ok, lam * lam_down, lam * lam_up), 1e-12, 1e8)

@@ -93,6 +93,23 @@ def test_point_clouds_match(runs):
     }
 
 
+def _gather_tiles(runs, monkeypatch):
+    """The JAX stage's uniform tiles take the gather sweep, as the port
+    sends every tile of a map of more than one tile (four 48-px tiles of
+    these 80x60 maps). The JAX stage gates its tiles on the poses alone
+    (ROADMAP.md §3), so its batched tile sweep gets method="gather"."""
+    from alicevision_tpu.mvs import sharded as jsh
+    from alicevision_tpu_torch.mvs.sharded import make_tiles
+
+    assert len(make_tiles(60, 80, 48, 16, clamp=True)) == 4
+    batched = jsh._batched_sgm_jit
+
+    def gather(*args, **kw):
+        return batched(*args[:7], args[7]._replace(method="gather"), *args[8:], **kw)
+
+    monkeypatch.setattr(jsh, "_batched_sgm_jit", gather)
+
+
 def _depth_pair(runs, tmp_path, name, views=(1,), **kw):
     """The port's and the JAX package's depthMapEstimation on the fixture's
     dense images with the same options, for the first len(views) views."""
@@ -138,13 +155,15 @@ def test_refine_branch_matches(runs, tmp_path):
         assert med < 0.03 and frac > 0.15
 
 
-def test_tiled_branch_matches(runs, tmp_path):
+def test_tiled_branch_matches(runs, tmp_path, monkeypatch):
     # 80x60 maps in 48-px tiles with 16 overlap: four clamped 48x48 tiles
+    _gather_tiles(runs, monkeypatch)
     port, ref = _depth_pair(runs, tmp_path, "tiled", views=(1, 2), tile_size=48, tile_overlap=16)
     _assert_rule(port, ref, runs["gt"])
 
 
-def test_tiled_refine_branch_matches(runs, tmp_path):
+def test_tiled_refine_branch_matches(runs, tmp_path, monkeypatch):
+    _gather_tiles(runs, monkeypatch)
     port, ref = _depth_pair(
         runs, tmp_path, "tiled_refine", tile_size=48, tile_overlap=16, refine=True, color_opt_iters=5,
     )

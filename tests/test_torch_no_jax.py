@@ -37,7 +37,9 @@ wanted = {"geometry.rotations", "geometry.pose", "camera.models", "utils.synthet
           "utils.calibration_scenes", "utils.svg", "sfmdata.middlebury", "sfmdata.alembic", "image.cache",
           "image.feeds", "matching.photometric_filter", "matching.kvld", "matching.hgrowing", "features.akaze",
           "keyframe", "keyframe.selector", "utils.onnx_rt", "misc.segmentation", "misc.masking",
-          "misc.color_harmonization", "mvs.lidar", "image.e57", "utils.render", "system"}
+          "misc.color_harmonization", "mvs.lidar", "image.e57", "utils.render", "system", "parallel",
+          "parallel.mesh", "parallel.distributed", "parallel.ba_sharded", "parallel.comms_report",
+          "parallel.launch"}
 missing = wanted - {n.split(".", 1)[1] for n in names}
 assert not missing, missing
 for name in names:

@@ -1,7 +1,13 @@
 """The port's tiling (mvs/sharded.py) against the JAX package, on the CPU:
 tile ROIs and the host merge exactly, the device merge at atol 1e-5, and
 batched and tiled SGM maps of a rendered 128x96 view (64-px tiles, D = 16)
-by the rule of test_torch_mvs_slice (>= 99 % of the pixels within 0.5 %)."""
+by the rule of test_torch_mvs_slice (>= 99 % of the pixels within 0.5 %).
+
+The port sends every tile of a map of more than one tile to the gather
+sweep, where the JAX package's pose gate sends it through the rectified
+sweep, which misses on a crop off the image's centre (ROADMAP.md §3). So
+the tiled map's reference is JAX's per-tile gather sweep, merged by JAX's
+`merge_tiles`, and a test holds JAX's divergence on such a tile."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -87,15 +93,97 @@ def test_device_merge_matches():
     np.testing.assert_allclose(out, tsh.merge_tiles(list(zip(rois, stack)), H, W), atol=1e-5)
 
 
+def _jax_tile(scene, crop_roi, t_imgs, R_rel, t_rel, method, n_depths=16):
+    """JAX's per-tile SGM map of one crop by `method` (its `_tile_sgm_jit`,
+    whose plane list is explicit, so `params.method` holds)."""
+    y0, y1, x0, x1 = crop_roi
+    Kc = scene["K"].copy()
+    Kc[0, 2] -= x0
+    Kc[1, 2] -= y0
+    depths = np.asarray(jps.inverse_depth_planes(3.0, 10.0, n_depths), np.float32)
+    d, _ = jsh._tile_sgm_jit(_j(scene["imgs"][0][y0:y1, x0:x1]), _j(t_imgs), _j(Kc), _j(scene["Kt"]), _j(R_rel),
+                             _j(t_rel), _j(depths), jps.SgmParams(n_depths=n_depths, method=method))
+    return np.asarray(d), Kc
+
+
 @pytest.mark.parametrize("method", ["rectified", "gather"])
 def test_sgm_depth_map_tiled_matches(scene, method):
+    """`method` names the pose gate's verdict. The reference is JAX's
+    per-tile gather sweeps merged by JAX's merge_tiles (with the poses that
+    fail the gate, JAX's tiled map is the same gather map)."""
     R_rel, t_rel = scene["pairs"][method]
     t_imgs = np.stack([scene["imgs"][1], scene["imgs"][2 if method == "rectified" else 0]])
     args = (scene["imgs"][0], t_imgs, scene["K"], scene["Kt"], R_rel, t_rel, 3.0, 10.0)
-    ref = jsh.sgm_depth_map_tiled(*args, jps.SgmParams(n_depths=16), tile=64, overlap=16)
+    tiles = [(roi, _jax_tile(scene, roi, t_imgs, R_rel, t_rel, "gather")[0])
+             for roi in jsh.make_tiles(H, W, 64, 16, clamp=True)]
+    ref = jsh.merge_tiles(tiles, H, W)
+    if method == "gather":
+        np.testing.assert_allclose(
+            ref, jsh.sgm_depth_map_tiled(*args, jps.SgmParams(n_depths=16), tile=64, overlap=16), atol=1e-5)
     out = tsh.sgm_depth_map_tiled(*args, tps.SgmParams(n_depths=16), tile=64, overlap=16, device="cpu")
     assert out.shape == (H, W) and out.device.type == "cpu"
-    assert _rule(out.numpy(), np.asarray(ref))
+    assert _rule(out.numpy(), ref)
+
+
+def _steps(a, b, n_depths=16):
+    """Median |a - b| in steps of the 3-10 inverse-depth plane list, where
+    both maps are valid."""
+    v = (a > 0) & (b > 0)
+    step = b[v] ** 2 * (1.0 / 3.0 - 1.0 / 10.0) / (n_depths - 1)
+    return float(np.median(np.abs(a[v] - b[v]) / step))
+
+
+def test_off_centre_tile_jax_diverges_port_does_not(scene):
+    """The bottom-right 64-px tile, principal point (-32, -16) px off its
+    centre: JAX's rectified sweep (what its pose gate picks) misses its
+    gather sweep by more than one depth step at the median; the port
+    sends the tile to the gather sweep, within a step of JAX's."""
+    R_rel, t_rel = scene["pairs"]["rectified"]
+    t_imgs = np.stack([scene["imgs"][1], scene["imgs"][2]])
+    roi = (32, 96, 64, 128)
+    rect, Kc = _jax_tile(scene, roi, t_imgs, R_rel, t_rel, "rectified")
+    gather, _ = _jax_tile(scene, roi, t_imgs, R_rel, t_rel, "gather")
+    assert _steps(rect, gather) > 1.0
+    out = tsh.sgm_depth_map_tiled(scene["imgs"][0], t_imgs, scene["K"], scene["Kt"], R_rel, t_rel, 3.0, 10.0,
+                                  tps.SgmParams(n_depths=16), tile=64, overlap=16, device="cpu")
+    port, _ = tps.sgm_depth_map(_t(scene["imgs"][0][32:96, 64:128]), _t(t_imgs), _t(Kc), _t(scene["Kt"]),
+                                _t(R_rel), _t(t_rel), 3.0, 10.0, tps.SgmParams(n_depths=16, method="gather"))
+    assert _steps(port.numpy(), gather) < 1.0
+    assert _rule(port.numpy(), gather)
+    assert out.shape == (H, W)
+
+
+@pytest.mark.parametrize("tile,pairs,swept", [
+    (64, "rectified", ["gather"] * 6), (64, "gather", ["gather"] * 6),  # six 64-px tiles of 128x96
+    (128, "rectified", ["rectified"]), (128, "gather", ["gather"]),
+])
+def test_tile_gate_decisions(scene, monkeypatch, tile, pairs, swept):
+    """The sweep each tile takes: the gather sweep on every tile of a map
+    of more than one tile whatever the poses, the pose gate's verdict on
+    one ROI."""
+    R_rel, t_rel = scene["pairs"][pairs]
+    taken = []
+
+    def record(ref, *args, **kw):
+        taken.append(args[7].method)
+        return torch.zeros_like(ref), torch.zeros_like(ref)
+
+    monkeypatch.setattr(tsh, "sgm_depth_map", record)
+    tsh.sgm_depth_map_tiled(scene["imgs"][0], scene["imgs"][1:], scene["K"], scene["Kt"], R_rel, t_rel, 3.0, 10.0,
+                            tps.SgmParams(n_depths=16), tile=tile, overlap=16, device="cpu")
+    assert taken == swept
+
+
+@pytest.mark.parametrize("method", ["rectified", "gather"])
+def test_untiled_map_keeps_its_path(scene, method):
+    """An image no larger than a tile is one ROI: its map is the pose-gated
+    sgm_depth_map's, bit for bit, as before the tile gate."""
+    R_rel, t_rel = scene["pairs"][method]
+    t_imgs = np.stack([scene["imgs"][1], scene["imgs"][2 if method == "rectified" else 0]])
+    args = (scene["imgs"][0], t_imgs, scene["K"], scene["Kt"], R_rel, t_rel)
+    out = tsh.sgm_depth_map_tiled(*args, 3.0, 10.0, tps.SgmParams(n_depths=16), tile=128, overlap=16, device="cpu")
+    ref, _ = tps.sgm_depth_map(*map(_t, args), 3.0, 10.0, tps.SgmParams(n_depths=16, method=method))
+    assert torch.equal(out, ref)
 
 
 def test_batched_sgm_matches(scene):
