@@ -352,9 +352,11 @@ def _orientation(stack, cx, cy, sigma_oct, lvl=None):
     nb = 36
     bin_f = (ang + math.pi) / (2 * math.pi) * nb
     b0 = torch.floor(bin_f).to(torch.int64) % nb
-    lead = w.shape[:-2]
-    hist = torch.zeros(lead + (nb,), dtype=w.dtype, device=w.device)
-    hist.scatter_add_(-1, b0.reshape(lead + (-1,)), w.reshape(lead + (-1,)))
+    # One sum a bin, as JAX's one-hot contraction: a card's scatter-add is
+    # atomic and sums in no fixed order, so near-tie peaks (and with them
+    # the keypoints and matches) changed from run to run.
+    wf, bf = w.flatten(-2), b0.flatten(-2)
+    hist = torch.stack([torch.where(bf == k, wf, 0.0).sum(-1) for k in range(nb)], dim=-1)
     # Circular smoothing (6 passes of [1,1,1]/3 like VLFeat).
     for _ in range(6):
         hist = (torch.roll(hist, 1, dims=-1) + hist + torch.roll(hist, -1, dims=-1)) / 3.0

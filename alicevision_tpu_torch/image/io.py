@@ -1,12 +1,22 @@
 """Host-side image IO and EXIF metadata (a numpy copy of
 `alicevision_tpu/image/io.py`).
 
-`.npy` is read and written with numpy alone; it is the image format of the
-main path on machines without an image codec library. EXR goes through the
-port's own scanline reader and writer (`image/exr.py`), and 8-bit PNG
-through the standard library's zlib (`write_png`, `read_png`), so that
-texturing's atlas is written and read back without a codec. Other formats,
-and EXIF, import `imageio` and PIL lazily, as the reference does.
+The formats the port reads and writes with its own code, with no image
+codec library (the card's machine has none):
+
+- `.npy`, with numpy alone;
+- EXR, through the port's scanline reader and writer (`image/exr.py`);
+- 8-bit PNG, through the standard library's zlib (`write_png`,
+  `read_png`; `read_exif` reads its IHDR for the dimensions);
+- JPEG (`.jpg`, `.jpeg`), through the port's codec (`image/jpeg.py` over
+  `native/jpeg.cpp`: decoded byte-equal to libjpeg-turbo, which the JAX
+  package reaches through imageio; written as PIL writes it at quality 75,
+  4:2:0) and its EXIF reader (`image/exif.py`). A JPEG never goes to
+  imageio or PIL: when the codec cannot be built, it raises.
+
+TIFF (`.tif`, `.tiff`), BMP, PNG variants the reader does not take and
+every other format still go to `imageio` (and EXIF to PIL), imported
+lazily, as the reference does.
 """
 
 from __future__ import annotations
@@ -18,6 +28,11 @@ import zlib
 import numpy as np
 
 _GRAY = np.array([0.299, 0.587, 0.114], np.float32)  # Rec.601 (OIIO)
+_JPEG_EXTS = (".jpg", ".jpeg")
+
+
+def _is_jpeg(path: str) -> bool:
+    return os.path.splitext(path)[1].lower() in _JPEG_EXTS
 
 
 def _read_exr_any(path: str):
@@ -140,6 +155,10 @@ def read_image(path: str, grayscale: bool = False) -> np.ndarray:
             pass  # a variant the reader does not take: imageio below
     if img is not None:
         pass
+    elif _is_jpeg(path):
+        from .jpeg import read_jpeg
+
+        img = read_jpeg(path)
     elif path.endswith(".npy"):
         img = np.load(path)
     elif path.endswith(".exr") and os.path.exists(path + ".npy"):
@@ -179,16 +198,45 @@ def write_image(path: str, img: np.ndarray) -> None:
     if path.lower().endswith(".png") and img.dtype == np.uint8:
         write_png(path, img)
         return
+    if _is_jpeg(path):
+        from .jpeg import write_jpeg
+
+        write_jpeg(path, img)
+        return
     import imageio.v2 as imageio
 
     imageio.imwrite(path, img)
 
 
+def _png_size(path: str):
+    """(width, height) from a PNG's IHDR."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != _PNG_SIG or head[12:16] != b"IHDR":
+        raise ValueError(f"not a PNG file: {path}")
+    return struct.unpack(">II", head[16:24])
+
+
 def read_exif(path: str) -> dict:
-    """Best-effort EXIF: make, model, focal length (mm), dimensions. Files
-    PIL cannot open (`.npy`, `.exr`, or no PIL at all) give their
-    dimensions only, read from the pixels."""
+    """Best-effort EXIF: make, model, focal length (mm), dimensions. A JPEG
+    goes to the port's reader (`image/exif.py`): its dimensions from the
+    SOF, the fields from IFD0 or the Exif sub-IFD, the dimensions alone
+    when its APP1 cannot be parsed; a missing or unbuildable codec raises.
+    A PNG gives its IHDR dimensions, `.npy` and `.exr` the dimensions of
+    their pixels. Other formats go to PIL; what PIL cannot open gives the
+    dimensions read from the pixels."""
+    if _is_jpeg(path):
+        from .exif import read_jpeg_exif
+
+        with open(path, "rb") as f:
+            return read_jpeg_exif(f.read())
+    if path.lower().endswith(".png"):
+        w, h = _png_size(path)
+        return {"width": w, "height": h}
     meta: dict = {}
+    if path.endswith((".npy", ".exr")):
+        meta["height"], meta["width"] = read_image(path).shape[:2]
+        return meta
     try:
         from PIL import ExifTags, Image
 

@@ -2,14 +2,16 @@
 
 Port of the max-flow half of `alicevision_tpu/native/__init__.py`: the
 graph-cut surface mesher's s-t min cut (`maxflow`), in
-`native/maxflow.cpp`, compiled with the system C++ compiler (`g++`, which
-`nvcc` itself needs) into `alicevision_tpu_torch/_build/` (listed in
-.gitignore) and loaded with ctypes. The library's file name carries a hash
-of its source and flags, so an edited source rebuilds. Unlike the
-reference there is no quiet fallback: without a compiler `maxflow` raises.
-`maxflow_plain` is the reference's fallback, scipy's integer
-`maximum_flow`, kept as the plain version the tests hold the C++ against.
-Nothing is built at import time.
+`native/maxflow.cpp`; and the port's JPEG codec (`native/jpeg.cpp`, the
+library behind `image/jpeg.py`, which the JAX package reaches through
+imageio and PIL). Each source is compiled with the system C++ compiler
+(`g++`, which `nvcc` itself needs) into `alicevision_tpu_torch/_build/`
+(listed in .gitignore) and loaded with ctypes. A library's file name
+carries a hash of its source and flags, so an edited source rebuilds.
+Unlike the reference there is no quiet fallback: without a compiler
+`maxflow` and the JPEG codec raise. `maxflow_plain` is the reference's
+fallback, scipy's integer `maximum_flow`, kept as the plain version the
+tests hold the C++ against. Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -24,33 +26,56 @@ from pathlib import Path
 import numpy as np
 
 _SRC = Path(__file__).resolve().parent / "maxflow.cpp"
+JPEG_SRC = _SRC.with_name("jpeg.cpp")
 BUILD = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _LIB = None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD / f"libmaxflow-{digest}.so"
+_USE = {"maxflow.cpp": "the graph-cut max-flow", "jpeg.cpp": "the JPEG codec"}
+_JPEG = None
 
 
-def build() -> Path:
-    """Compile maxflow.cpp unless its library is already built; returns the
-    library's path. Raises when no C++ compiler is found or it fails."""
-    lib = library_path()
+def library_path(src: Path = _SRC) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD / f"lib{src.stem}-{digest}.so"
+
+
+def build(src: Path = _SRC) -> Path:
+    """Compile `src` (maxflow.cpp by default) unless its library is already
+    built; returns the library's path. Raises when no C++ compiler is found
+    or it fails."""
+    lib = library_path(src)
     if lib.exists():
         return lib
     cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
     if cxx is None:
-        raise RuntimeError("no C++ compiler (g++) found: the graph-cut max-flow needs one to build")
+        raise RuntimeError(f"no C++ compiler (g++) found: {_USE[src.name]} needs one to build")
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([cxx, *CXX_FLAGS, str(_SRC), "-o", str(tmp)], capture_output=True, text=True)
+    res = subprocess.run([cxx, *CXX_FLAGS, str(src), "-o", str(tmp)], capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"{cxx} failed for native/maxflow.cpp:\n{res.stdout}{res.stderr}")
+        raise RuntimeError(f"{cxx} failed for native/{src.name}:\n{res.stdout}{res.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return lib
+
+
+def jpeg_library() -> ctypes.CDLL:
+    """The JPEG codec's library (native/jpeg.cpp), built at first use."""
+    global _JPEG
+    if _JPEG is None:
+        lib = ctypes.CDLL(str(build(JPEG_SRC)))
+        p = ctypes.c_void_p
+        i64, i32 = ctypes.c_int64, ctypes.c_int
+        lib.jpeg_decode_coefficients.restype = i32
+        lib.jpeg_decode_coefficients.argtypes = [p, i64, i32, p, i64, i64, i32, p, i32, p, p]
+        lib.jpeg_pixels.restype = i32
+        lib.jpeg_pixels.argtypes = [i32, p, p, p, i64, i64, i64, i64, i32, p]
+        lib.jpeg_encode_scan.restype = i64
+        lib.jpeg_encode_scan.argtypes = [p, i64, i64, i32, p, p, p, i64]
+        _JPEG = lib
+    return _JPEG
 
 
 def _load() -> ctypes.CDLL:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's dense depth-map path with all its branches,
-its SfM front end, its whole main path (images to point cloud), its
+its SfM front end, its whole main path (images to point cloud, from
+`.npy` images and from camera JPEGs through its own codec), its
 surface mesher, Meshroom's chain through its CLI (images to textured mesh,
 one process a stage), the HDR panorama chain and global SfM, the hard scene
 (images to poses), camera and rig localization against it, the auxiliary
@@ -14,7 +15,8 @@ toolkit (`nvcc`). It
 
 1. prints the card's name and power limit (nvidia-smi) and turns TF32 off;
 2. builds every CUDA source of the port (`alicevision_tpu_torch/csrc/`) and
-   its host C++ max-flow (`native/maxflow.cpp`, with g++);
+   its host C++ max-flow and JPEG codec (`native/maxflow.cpp`,
+   `native/jpeg.cpp`, with g++);
 3. holds the SGM kernel's two entries against their plain PyTorch versions
    on the card: `sgm_directional_pass` at the reference's test shapes,
    ragged ones, D past 512 (the carry in shared memory, up to the
@@ -64,7 +66,18 @@ toolkit (`nvcc`). It
    meshing, and checks the poses (similarity-aligned to the rendered ones),
    the landmarks, each posed view's depth map, the cloud and the SGM
    launches (four a map); then incrementalSfm once more with its host syncs
-   counted;
+   counted; and the focal split: (fx, fy) of the port's CPU front end on
+   these views (tests/golden/focal_parting_tracks.npz) and of the card's,
+   each through the CPU engine and the card's;
+7a. the `photos` phase (after step 7): the port's JPEG codec
+   (native/jpeg.cpp, built with g++) on the committed fixtures against
+   PIL's hashes and the plain decoder; a 24 MP photograph encoded at
+   quality 95 and decoded, timed, with its PSNR; the same 8 views as
+   camera JPEGs (FocalLength in the Exif sub-IFD) through
+   run_full_pipeline with no default focal, held to the pipeline's gates
+   and 32 SGM launches; tests/test_pipeline_photos.py's 40 distorted
+   640x480 views rendered on the card, through cameraInit from EXIF,
+   DSP-SIFT, voctree pairs, matching and incrementalSfm at its gates;
 7b. the `cli` phase (after step 7): Meshroom's chain on the same images as
    14 processes of `python -m alicevision_tpu_torch.pipeline.cli`, one a
    stage, at the CLI's defaults, each timed from launch to exit with the
@@ -178,7 +191,7 @@ toolkit (`nvcc`). It
    ring-halo consistency filter bit-exact with `consistency_filter_ring`,
    and the BA and fusion comms tables at one shard (0 collective bytes);
 11. prints a `mesh_surface`, a `hard_scene`, a `dense_full`, a `front`, a
-   `pipeline`, a `ba`, a `cli`, a `panorama`, a `localization`, a
+   `pipeline`, a `photos`, a `ba`, a `cli`, a `panorama`, a `localization`, a
    `solvers`, a `calibration`, an `extras`, an `aux`, a `scaleout` and a
    `kernels` JSON line, the whole run's seconds and, last,
    `{"ok": true, "device": ...}`.
@@ -189,7 +202,7 @@ It needs a CUDA device; `make_posed_scene`, `run_main_path`, `run_front`,
 `cli_chain`, `check_cli`, `make_panorama_inputs`, `run_panorama_chain`,
 `panorama_report`, `run_hard_scene_engine`, `run_hard_images`,
 `run_localization_phase`, `check_eigh_sites`, `run_calibration_phase`,
-`run_extras_phase`, `run_aux_phase`,
+`run_extras_phase`, `run_aux_phase`, `run_photos_phase`,
 the bench scenes and the BA problem builders
 also run on the CPU at small sizes (the port's tests call some of them
 so).
@@ -219,6 +232,7 @@ from alicevision_tpu_torch.mvs import plane_sweep
 from alicevision_tpu_torch.mvs.plane_sweep import _axis_sweeps, _directional_pass
 from alicevision_tpu_torch.ops import build, sgm_kernel
 from alicevision_tpu_torch.features import sift
+from alicevision_tpu_torch.image import exif, jpeg
 from alicevision_tpu_torch.image.filtering import _resize_bilinear
 from alicevision_tpu_torch.pipeline import stages
 from alicevision_tpu_torch.sfm import ba
@@ -1245,7 +1259,10 @@ def check_pipeline(dev, work: str, image_folder: str, posed_sfm: str, gt: np.nda
         os.path.join(out, "cameraInit.sfm"), os.path.join(out, "features"), os.path.join(out, "matches.npz"),
         os.path.join(work, "pipe_syncs.sfm"), device=dev))
     rep = pipeline_report(out, R_true, c_true, gt)
+    split = focal_split(dev, work, out, rep["focal_px"])
+    print("pipeline focal split " + json.dumps(split), flush=True)
     row = {
+        "focal_split": split,
         "stage_seconds_warm": warm,
         "stage_seconds_cold": cold,
         "incremental_step_seconds_warm": engine.seconds,
@@ -1282,6 +1299,309 @@ def check_pipeline(dev, work: str, image_folder: str, posed_sfm: str, gt: np.nda
     if bad:
         raise RuntimeError("pipeline: " + "; ".join(bad))
     return row, {k: cold_launches[k] + warm_launches[k] for k in cold_launches}
+
+
+# --------------------------------------------------------------- photos
+
+# The photos phase: photographs (JPEG bytes with EXIF) through the port's
+# own codec (image/jpeg.py over native/jpeg.cpp) and EXIF reader
+# (image/exif.py), on a machine with no image codec library. (a) the
+# committed fixtures against PIL's decode (fixtures.json, written by
+# scripts/make_jpeg_fixtures.py where PIL exists) and the plain decoder;
+# (b) a 24 MP photograph (the aux phase's generator) encoded at quality
+# 95, 4:2:0, and decoded: seconds, MP/s, the decode's host peak, the
+# round trip's PSNR against its floor (43.4888 dB on the CPU: integer
+# arithmetic, the same on every host), and C++ against plain on a 512 px
+# crop; (c) the pipeline phase's 8 views as quality-95 JPEGs (grey in
+# three channels, as tests/test_pipeline_photos.py writes them) with the
+# camera's FocalLength in the Exif sub-IFD, through run_full_pipeline with
+# no default focal, held to the pipeline phase's gates (the rotations
+# within PHOTO_ROT_DEG), the EXIF focal within 0.5 % and 4 SGM launches a
+# map of every view (32); (d) the JAX photo test's operating
+# point (tests/test_pipeline_photos.py:54-128): 40 distorted 640x480 views
+# rendered on the card, cameraInit from EXIF -> DSP-SIFT at 4096 ->
+# voctree pairs (6) -> featureMatching -> incrementalSfm, at its gates.
+PHOTO_FIXTURES = os.path.join(ROOT, "alicevision_tpu_torch", "data", "jpeg_fixtures")
+PHOTO_CAMERA = ("Canon", "Canon EOS 5D Mark III")
+PHOTO_SENSOR_MM = 36.0  # its sensor width in the port's sensor database
+PHOTO_QUALITY = 95
+PHOTO_24MP_WH = (6000, 4000)
+PHOTO_PSNR_FLOOR = 43.4
+PHOTO_CROP = 512
+PHOTO_EXIF_FOCAL = 0.005
+# The photo pipeline's rotation gate. On this 0.6 rad arc fy is weakly
+# observed and follows the RANSAC draws in both engines (ROADMAP §3), and
+# the largest rotation error with it: on the port's CPU front end the JAX
+# engine's seeds 0-7 read 0.227-1.508 deg (3 of 8 above 1 deg), the port's
+# 0.225-0.842 (scripts/focal_parting.py); the card's JPEG run read 1.126
+# (fy 1023 px). The gate is the cli phase's 2 deg, above every JAX draw;
+# the other gates are the pipeline phase's.
+PHOTO_ROT_DEG = 2.0
+PHOTO_HARD = dict(n_views=40, wh=(640, 480), focal_px=450.0, disto=(-0.25, 0.06, -0.005), max_keypoints=4096,
+                  n_neighbors=6)
+PHOTO_HARD_GATES = dict(min_posed=39, ate=0.012, focal=0.03, k1=(-0.40, -0.12))
+FOCAL_FIXTURE = os.path.join(ROOT, "tests", "golden", "focal_parting_tracks.npz")
+
+
+def write_photos(folder: str, imgs: np.ndarray, focal_px: float, names=None, quality: int = PHOTO_QUALITY) -> float:
+    """Grey float views -> RGB JPEGs (the grey in all three channels) at
+    `quality`, 4:2:0, with the camera's Make, Model and FocalLength (in the
+    Exif sub-IFD, where cameras write it). Returns the focal in mm."""
+    focal_mm = focal_px * PHOTO_SENSOR_MM / imgs.shape[2]
+    app1 = exif.exif_app1(*PHOTO_CAMERA, focal_mm)
+    os.makedirs(folder, exist_ok=True)
+    for v in range(len(imgs)):
+        u8 = np.clip(imgs[v] * 255.0, 0, 255).astype(np.uint8)
+        data = exif.insert_app1(jpeg.encode(np.dstack([u8] * 3), quality), app1)
+        with open(os.path.join(folder, names[v] if names else f"view_{v:03d}.jpg"), "wb") as f:
+            f.write(data)
+    return focal_mm
+
+
+def check_jpeg_fixtures() -> dict:
+    """Every committed fixture decoded by the C++ and the plain decoder
+    against PIL's SHA-256, and its EXIF and size against PIL's reading."""
+    import hashlib
+
+    from alicevision_tpu_torch.image.io import read_exif
+
+    with open(os.path.join(PHOTO_FIXTURES, "fixtures.json")) as f:
+        table = json.load(f)
+    misses, total = [], 0
+    t0 = time.perf_counter()
+    for name, want in sorted(table.items()):
+        path = os.path.join(PHOTO_FIXTURES, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        total += len(data)
+        for route, decode in (("C++", jpeg.decode), ("plain", jpeg.decode_plain)):
+            got = decode(data)
+            if list(got.shape) != want["shape"] or hashlib.sha256(got.tobytes()).hexdigest() != want["sha256"]:
+                misses.append(f"{name}: the {route} decode is not PIL's")
+        meta = read_exif(path)
+        size = [meta.pop("height"), meta.pop("width")]
+        if size != want["shape"][:2] or meta != want["exif"]:
+            misses.append(f"{name}: EXIF {meta} at {size}, PIL read {want['exif']} at {want['shape'][:2]}")
+    return {"fixtures": len(table), "bytes": total, "seconds": time.perf_counter() - t0, "misses": misses}
+
+
+def _host_peak(fn):
+    """fn() with this process's resident memory sampled every 5 ms: (its
+    result, the peak above the resident memory at the start, in bytes)."""
+    import threading
+
+    base = _resident_bytes(os.getpid()) or 0
+    peak, done = [base], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            peak[0] = max(peak[0], _resident_bytes(os.getpid()) or 0)
+            time.sleep(0.005)
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        th.join()
+    return out, max(peak[0] - base, 0)
+
+
+def _psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * math.log10(255.0**2 / mse)
+
+
+def photo_round_trip(wh=PHOTO_24MP_WH, crop: int = PHOTO_CROP, quality: int = PHOTO_QUALITY) -> dict:
+    """A photograph of `wh` encoded and decoded by the port's codec, and a
+    `crop`-px corner of it decoded by the C++ and by the plain decoder."""
+    t0 = time.perf_counter()
+    src = np.clip(aux_photo(wh) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    made = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = jpeg.encode(src, quality)
+    enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    img, peak = _host_peak(lambda: jpeg.decode(data))
+    dec = time.perf_counter() - t0
+    corner = jpeg.encode(np.ascontiguousarray(src[:crop, :crop]), quality)
+    t0 = time.perf_counter()
+    plain = jpeg.decode_plain(corner)
+    plain_s = time.perf_counter() - t0
+    mp = wh[0] * wh[1] / 1e6
+    return {"wh": list(wh), "quality": quality, "jpeg_bytes": len(data), "make_s": made, "encode_s": enc,
+            "encode_mp_s": mp / enc, "decode_s": dec, "decode_mp_s": mp / dec, "decode_host_peak_gib": peak / 2**30,
+            "psnr_db": _psnr(img, src), "shape_ok": img.shape == src.shape, "crop": crop,
+            "crop_plain_equal": bool(np.array_equal(jpeg.decode(corner), plain)), "crop_plain_s": plain_s}
+
+
+def photo_pipeline(dev, work: str, image_folder: str, posed_sfm: str, gt: np.ndarray) -> dict:
+    """The pipeline phase's views as camera JPEGs through run_full_pipeline
+    with no default focal (cameraInit: EXIF -> sensor database)."""
+    truth = sfmdata.load(posed_sfm)
+    names = sorted(f for f in os.listdir(image_folder) if f.endswith(".npy"))
+    imgs = np.stack([np.load(os.path.join(image_folder, n)) for n in names])
+    folder = os.path.join(work, "photos_images")
+    t0 = time.perf_counter()
+    focal_mm = write_photos(folder, imgs, 1120.0, names=[n[:-4] + ".jpg" for n in names])
+    write_s = time.perf_counter() - t0
+    out = os.path.join(work, "photos_pipe")
+    seconds, launches = run_pipeline(out, folder, dev, focal_px=None)
+    rep = pipeline_report(out, truth.pose_R[truth.view_pose], truth.pose_c[truth.view_pose], gt)
+    return {"views": len(names), "write_jpeg_s": write_s, "exif_focal_mm": focal_mm,
+            "camera_init_focal_px": float(sfmdata.load(os.path.join(out, "cameraInit.sfm")).scale[0, 0]),
+            "stage_seconds": seconds, "sgm_launches": launches,
+            "depth_maps": len(os.listdir(os.path.join(out, "depth"))) // 2, **rep}
+
+
+def hard_photos(dev, work: str, cfg=PHOTO_HARD) -> dict:
+    """tests/test_pipeline_photos.py's run through the port's stages, the
+    views rendered on `dev` (render_hard_views) and written as camera
+    JPEGs."""
+    from alicevision_tpu_torch.utils.rendered import render_hard_views
+
+    cuda = torch.device(dev).type == "cuda"
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return res
+
+    imgs, _, _, _, c_gt = timed("render", render_hard_views, cfg["n_views"], cfg["wh"], focal_px=cfg["focal_px"],
+                                disto=cfg["disto"], device=dev)
+    p = lambda *x: os.path.join(work, "photos_hard", *x)  # noqa: E731
+    timed("write_jpeg", write_photos, p("images"), np.asarray(imgs), cfg["focal_px"])
+    scene = timed("cameraInit", stages.camera_init, p("images"), p("cameraInit.sfm"), device=dev)
+    timed("featureExtraction", stages.feature_extraction, p("cameraInit.sfm"), p("features"),
+          max_keypoints=cfg["max_keypoints"], downscale_to=0, describer_types="dspsift", device=dev)
+    timed("imageMatching", stages.image_matching, p("cameraInit.sfm"), p("features"), p("pairs.txt"),
+          method="voctree", n_neighbors=cfg["n_neighbors"], device=dev)
+    timed("featureMatching", stages.feature_matching, p("cameraInit.sfm"), p("features"), p("pairs.txt"),
+          p("matches.npz"), device=dev)
+    out = timed("incrementalSfm", stages.incremental_sfm, p("cameraInit.sfm"), p("features"), p("matches.npz"),
+                p("sfm.sfm"), device=dev)
+    posed = out.valid_views()
+    ate, _ = _ate_rel(out.pose_c[out.view_pose[posed]], c_gt[posed], c_gt)
+    return {"views": cfg["n_views"], "wh": list(cfg["wh"]), "posed": int(len(posed)), "ate_frac_of_radius": ate,
+            "exif_focal_px": float(scene.scale[0, 0]), "focal_px": out.scale[0].tolist(),
+            "focal_true": cfg["focal_px"], "k1": float(out.disto[0][0]), "k1_true": cfg["disto"][0],
+            "landmarks": int(out.n_landmarks), "stage_seconds": seconds}
+
+
+def photos_misses(row: dict, gates=PHOTO_HARD_GATES) -> list:
+    """The gates of the photos phase that `row` misses."""
+    bad = list(row["fixtures"]["misses"])
+    rt = row["photo_24mp"]
+    if not (rt["shape_ok"] and rt["psnr_db"] >= PHOTO_PSNR_FLOOR):
+        bad.append(f"24 MP round trip at {rt['psnr_db']:.4f} dB, expected at least {PHOTO_PSNR_FLOOR}")
+    if not rt["crop_plain_equal"]:
+        bad.append("the 24 MP photograph's crop: C++ and plain decodes differ")
+    pp = row["pipeline"]
+    if not abs(pp["camera_init_focal_px"] - 1120.0) / 1120.0 < PHOTO_EXIF_FOCAL:
+        bad.append(f"cameraInit focal {pp['camera_init_focal_px']:.2f} px, expected within 0.5 % of 1120")
+    want = {"sgm_directional_pass": 0, "sgm_axis_sweeps": LAUNCHES_PER_MAP * pp["views"]}
+    if pp["sgm_launches"] != want or pp["depth_maps"] != pp["n_posed"]:
+        bad.append(f"{pp['depth_maps']} depth maps, SGM launches {pp['sgm_launches']}, expected {want} "
+                   f"(4 a map of each of the {pp['views']} views)")
+    if pp["n_posed"] < PIPE_MIN_POSED:
+        bad.append(f"{pp['n_posed']} views posed, expected at least {PIPE_MIN_POSED}")
+    if pp["ate_frac_of_radius"] >= PIPE_ATE_FRAC:
+        bad.append(f"camera-centre ATE {pp['ate_frac_of_radius']:.4f} of the radius, expected < {PIPE_ATE_FRAC}")
+    if max(pp["rotation_err_deg"]) >= PHOTO_ROT_DEG:
+        bad.append(f"rotation errors {pp['rotation_err_deg']} deg, expected < {PHOTO_ROT_DEG}")
+    if pp["landmarks"] < PIPE_MIN_LANDMARKS:
+        bad.append(f"{pp['landmarks']} landmarks, expected at least {PIPE_MIN_LANDMARKS}")
+    missed = [v for v, m, f in zip(pp["posed"], pp["depth_median_rel_err"], pp["depth_valid_frac"])
+              if not (m < PIPE_DEPTH_MED and f > PIPE_DEPTH_VALID)]
+    if missed:
+        bad.append(f"views {missed} miss the depth floors (<{PIPE_DEPTH_MED}, >{PIPE_DEPTH_VALID})")
+    if not (pp["cloud_points"] or 0) > PIPE_MIN_CLOUD:
+        bad.append(f"cloud.ply holds {pp['cloud_points']} points, expected more than {PIPE_MIN_CLOUD}")
+    hp = row.get("hard")
+    if hp is not None:
+        f_true = hp["focal_true"]
+        if hp["posed"] < gates["min_posed"]:
+            bad.append(f"hard photos: {hp['posed']} of {hp['views']} posed, expected at least {gates['min_posed']}")
+        if not hp["ate_frac_of_radius"] < gates["ate"]:
+            bad.append(f"hard photos: ATE {hp['ate_frac_of_radius']:.5f} of the radius, expected < {gates['ate']}")
+        if not abs(float(np.mean(hp["focal_px"])) - f_true) / f_true < gates["focal"]:
+            bad.append(f"hard photos: focal {hp['focal_px']}, expected within 3 % of {f_true}")
+        if not gates["k1"][0] < hp["k1"] < gates["k1"][1]:
+            bad.append(f"hard photos: k1 {hp['k1']:.4f}, expected in {gates['k1']}")
+        if not abs(hp["exif_focal_px"] - f_true) / f_true < PHOTO_EXIF_FOCAL:
+            bad.append(f"hard photos: EXIF focal {hp['exif_focal_px']:.2f} px, expected within 0.5 % of {f_true}")
+    return bad
+
+
+def run_photos_phase(dev, work: str, image_folder: str, posed_sfm: str, gt: np.ndarray, npy_seconds=None,
+                     smi: str = "", wh_24mp=PHOTO_24MP_WH, hard_cfg=PHOTO_HARD) -> tuple:
+    """The photos phase (see its constants): (the `photos` row, the SGM
+    launches of its pipeline run). `hard_cfg=None` leaves out (d)."""
+    t_phase = time.perf_counter()
+    row = {"device": smi, "fixtures": check_jpeg_fixtures(), "photo_24mp": photo_round_trip(wh_24mp)}
+    row["pipeline"] = photo_pipeline(dev, work, image_folder, posed_sfm, gt)
+    row["pipeline"]["stage_seconds_npy_warm"] = npy_seconds
+    if hard_cfg is not None:
+        row["hard"] = hard_photos(dev, work, hard_cfg)
+    row["seconds"] = time.perf_counter() - t_phase
+    return row, dict(row["pipeline"]["sgm_launches"])
+
+
+def check_photos(dev, work: str, image_folder: str, posed_sfm: str, gt: np.ndarray, npy_seconds, smi: str) -> tuple:
+    row, launches = run_photos_phase(dev, work, image_folder, posed_sfm, gt, npy_seconds, smi)
+    row["misses"] = photos_misses(row)
+    print("photos " + json.dumps(row), flush=True)
+    if row["misses"]:
+        raise RuntimeError("photos: " + "; ".join(row["misses"]))
+    return row, launches
+
+
+def load_focal_fixture(path: str = FOCAL_FIXTURE) -> dict:
+    """The port's CPU front end on the pipeline phase's views, as tracks
+    (scripts/focal_parting.py --write-fixture): the track arrays, each
+    view's feature positions, the intrinsics row and the image sizes."""
+    with np.load(path) as z:
+        n_views = len(z["view_intrinsic"])
+        return dict(
+            tracks=(z["track_ids"], z["views"], z["features"], int(z["n_tracks"])),
+            xy={v: z[f"xy_{v}"] for v in range(n_views)},
+            intr=[z[f"intr_{i}"] for i in range(sum(k.startswith("intr_") for k in z.files))],
+            view_intrinsic=z["view_intrinsic"], image_sizes=z["image_sizes"],
+        )
+
+
+def focal_split(dev, work: str, card_run: str, card_focal) -> dict:
+    """The 8-view arc's (fx, fy) for each front end through each engine,
+    all at the engine's defaults (seed 0): the port's CPU front end on
+    these views (tests/golden/focal_parting_tracks.npz, written by
+    scripts/focal_parting.py) and the card's (`card_run`, the pipeline
+    phase's warm run, whose card engine read `card_focal`), each through
+    the CPU engine and the card's."""
+    from alicevision_tpu_torch.convert import tracks_from_numpy
+    from alicevision_tpu_torch.sfm.incremental import IncrementalConfig, IncrementalSfM
+
+    fx = load_focal_fixture()
+    out, seconds = {}, {}
+    for name, device in (("cpu_front_cpu_engine", "cpu"), ("cpu_front_card_engine", dev)):
+        t0 = time.perf_counter()
+        e = IncrementalSfM(tracks_from_numpy(*fx["tracks"]), fx["xy"], fx["intr"], fx["view_intrinsic"],
+                           fx["image_sizes"], IncrementalConfig(seed=0), device=device)
+        e.process()
+        out[name] = np.asarray(e.intr_np.scale, np.float64).ravel().tolist()
+        seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc = stages.incremental_sfm(os.path.join(card_run, "cameraInit.sfm"), os.path.join(card_run, "features"),
+                                os.path.join(card_run, "matches.npz"), os.path.join(work, "split_cpu.sfm"),
+                                device="cpu")
+    out["card_front_cpu_engine"] = np.asarray(sc.scale[0], np.float64).tolist()
+    seconds["card_front_cpu_engine"] = time.perf_counter() - t0
+    out["card_front_card_engine"] = [float(x) for x in np.ravel(card_focal)]
+    return {"focal_px": out, "seconds": seconds}
 
 
 # ------------------------------------------------------------------- BA
@@ -5301,6 +5621,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     print(f"build native/maxflow.cpp (g++, the graph cut's max-flow): {native.build().name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    print(f"build native/jpeg.cpp (g++, the JPEG codec): {native.build(native.JPEG_SRC).name} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernel against its plain version, both entries
     rows = check_sgm_kernel(dev)
@@ -5380,6 +5703,11 @@ def main(argv=None) -> int:
         # 7. the whole main path, images to cloud.ply, on the same images
         pipe, pipe_launches = check_pipeline(dev, work, os.path.join(work, "images"), sfm, gt)
 
+        # 7a. photographs: the port's JPEG codec and EXIF reader, the
+        # pipeline from camera JPEGs, the JAX photo test's operating point
+        photos_row, photos_launches = check_photos(dev, work, os.path.join(work, "images"), sfm, gt,
+                                                   pipe["stage_seconds_warm"], smi)
+
         # 7b. Meshroom's chain through the CLI, one process a stage
         cli_row, cli_launches = check_cli(dev, work, os.path.join(work, "images"), sfm, gt, smi)
 
@@ -5423,6 +5751,7 @@ def main(argv=None) -> int:
     print(json.dumps({"dense_full": dense_full}), flush=True)
     print(json.dumps({"front": front}), flush=True)
     print(json.dumps({"pipeline": pipe}), flush=True)
+    print(json.dumps({"photos": photos_row}), flush=True)
     print(json.dumps({"ba": ba_rows}), flush=True)
     print(json.dumps({"cli": cli_row}), flush=True)
     print(json.dumps({"panorama": pano_row}), flush=True)
@@ -5432,7 +5761,8 @@ def main(argv=None) -> int:
     print(json.dumps({"extras": extras_row}), flush=True)
     print(json.dumps({"aux": aux_row}), flush=True)
     print(json.dumps({"scaleout": scale_row}), flush=True)
-    launches = {k: launches[k] + pipe_launches[k] + full_launches[k] + cli_launches[k] + pano_launches[k]
+    launches = {k: launches[k] + pipe_launches[k] + photos_launches[k] + full_launches[k] + cli_launches[k]
+                + pano_launches[k]
                 + loc_launches[k] + cal_launches[k] + extras_launches[k] + aux_launches[k] + scale_launches[k]
                 for k in launches}
     print(json.dumps({"kernels": [kernels_line(rows, agg_rows, launches)]}), flush=True)
