@@ -5,7 +5,8 @@ Counterpart of the reference's dataio module
 (ref: src/aliceVision/dataio/ImageFeed.cpp, VideoFeed.cpp, SfMDataFeed.cpp
 behind FeedProvider.hpp — uniform frame iteration for localization and
 keyframe tools). Python generators with a common (image, name, intrinsics?)
-yield; video through cv2 when available.
+yield. Video is read by the port's MJPEG AVI reader (`image/avi.py`), with
+no OpenCV: the JAX package's feed goes through `cv2.VideoCapture`.
 """
 
 from __future__ import annotations
@@ -28,28 +29,16 @@ def image_feed(folder: str, grayscale: bool = True) -> Iterator[tuple]:
 
 
 def video_feed(path: str, grayscale: bool = True, stride: int = 1) -> Iterator[tuple]:
-    """Yield (frame, index) from a video file via OpenCV (VideoFeed)."""
-    try:
-        import cv2
-    except Exception as e:  # pragma: no cover
-        raise RuntimeError("video feeds require OpenCV") from e
-    cap = cv2.VideoCapture(path)
-    if not cap.isOpened():
-        raise IOError(f"cannot open video: {path}")
-    i = 0
-    try:
-        while True:
-            ok, frame = cap.read()
-            if not ok:
-                break
-            if i % stride == 0:
-                img = frame[..., ::-1].astype(np.float32) / 255.0
-                if grayscale:
-                    img = img @ np.array([0.299, 0.587, 0.114], np.float32)
-                yield img, i
-            i += 1
-    finally:
-        cap.release()
+    """Yield (frame, index) from an MJPEG AVI (VideoFeed): float32 RGB in
+    [0, 1], or its Rec.601 grey, every `stride`-th frame. Other codecs and
+    containers raise ValueError (`image/avi.py`)."""
+    from .avi import read_frames
+
+    for frame, i in read_frames(path, stride):
+        img = frame.astype(np.float32) / 255.0
+        if grayscale:
+            img = img @ np.array([0.299, 0.587, 0.114], np.float32)
+        yield img, i
 
 
 def sfm_feed(scene, grayscale: bool = True) -> Iterator[tuple]:

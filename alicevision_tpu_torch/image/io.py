@@ -1,38 +1,69 @@
 """Host-side image IO and EXIF metadata (a numpy copy of
 `alicevision_tpu/image/io.py`).
 
-The formats the port reads and writes with its own code, with no image
-codec library (the card's machine has none):
+The JAX package reads and writes images through imageio (Pillow, and the
+tifffile bundled with imageio) and EXIF through PIL. The port reads and
+writes these formats with its own code, with no image codec library (the
+card's machine has none), and never imports imageio, PIL or cv2 for them:
 
 - `.npy`, with numpy alone;
 - EXR, through the port's scanline reader and writer (`image/exr.py`);
-- 8-bit PNG, through the standard library's zlib (`write_png`,
-  `read_png`; `read_exif` reads its IHDR for the dimensions);
+- PNG (`image/png.py`): every bit depth and colour type, palettes,
+  `tRNS`, Adam7; written as 8- or 16-bit;
 - JPEG (`.jpg`, `.jpeg`), through the port's codec (`image/jpeg.py` over
-  `native/jpeg.cpp`: decoded byte-equal to libjpeg-turbo, which the JAX
-  package reaches through imageio; written as PIL writes it at quality 75,
-  4:2:0) and its EXIF reader (`image/exif.py`). A JPEG never goes to
-  imageio or PIL: when the codec cannot be built, it raises.
+  `native/jpeg.cpp`: decoded byte-equal to libjpeg-turbo; written as PIL
+  writes it at quality 75, 4:2:0);
+- TIFF (`.tif`, `.tiff`; `image/tiff.py`): 8- and 16-bit and float,
+  uncompressed, LZW, deflate or PackBits, predictors, strips and tiles;
+  written baseline and uncompressed, as imageio writes it;
+- BMP (`image/bmp.py`): palette, RLE, 24- and 32-bit; written as Pillow
+  writes it.
 
-TIFF (`.tif`, `.tiff`), BMP, PNG variants the reader does not take and
-every other format still go to `imageio` (and EXIF to PIL), imported
-lazily, as the reference does.
+Each returns the dtype and shape imageio returns, with two partings that
+follow the reference (OIIO): a 16-bit RGB, RGBA or grey + alpha PNG keeps
+its 16 bits, and a TIFF of PlanarConfiguration 2 comes out (H, W, S), not
+(S, H, W) (ROADMAP §3). A variant a reader does not take raises a
+ValueError naming it; when the C++ of `native/` cannot be built, the PNG,
+JPEG and TIFF readers raise. `read_exif` reads a JPEG's EXIF
+(`image/exif.py`), a TIFF's own IFD0 and Exif sub-IFD, and the
+dimensions of PNG and BMP headers, with no PIL.
+
+Other formats (GIF, WebP, ...) still go to imageio, and their EXIF to PIL,
+imported lazily, as the reference does (ROADMAP §2).
 """
 
 from __future__ import annotations
 
+import mmap
 import os
-import struct
-import zlib
 
 import numpy as np
 
+from .png import PNG_SIG as _PNG_SIG, _chunk as _png_chunk, _unfilter, read_png, write_png  # noqa: F401
+
 _GRAY = np.array([0.299, 0.587, 0.114], np.float32)  # Rec.601 (OIIO)
-_JPEG_EXTS = (".jpg", ".jpeg")
+_CODECS = {".jpg": "jpeg", ".jpeg": "jpeg", ".png": "png", ".tif": "tiff", ".tiff": "tiff", ".bmp": "bmp"}
 
 
-def _is_jpeg(path: str) -> bool:
-    return os.path.splitext(path)[1].lower() in _JPEG_EXTS
+def _codec(path: str):
+    """The port's own codec for `path`'s extension, or None."""
+    return _CODECS.get(os.path.splitext(path)[1].lower())
+
+
+def _read_own(path: str, kind: str) -> np.ndarray:
+    if kind == "png":
+        return read_png(path)
+    if kind == "jpeg":
+        from .jpeg import read_jpeg
+
+        return read_jpeg(path)
+    if kind == "tiff":
+        from .tiff import read_tiff
+
+        return read_tiff(path)
+    from .bmp import read_bmp
+
+    return read_bmp(path)
 
 
 def _read_exr_any(path: str):
@@ -54,111 +85,11 @@ def _read_exr_any(path: str):
         return img
 
 
-_PNG_SIG = b"\x89PNG\r\n\x1a\n"
-# colour type by channel count, and back (gray, gray+alpha, RGB, RGBA)
-_PNG_COLOR = {1: 0, 2: 4, 3: 2, 4: 6}
-_PNG_CHANNELS = {v: k for k, v in _PNG_COLOR.items()}
-
-
-def _png_chunk(kind: bytes, data: bytes) -> bytes:
-    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
-
-
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write a uint8 (H, W[, C]) array, C in 1..4, as an 8-bit
-    non-interlaced PNG (filter 0 on every row)."""
-    img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"PNG takes uint8 pixels, not {img.dtype}")
-    if img.ndim == 2:
-        img = img[..., None]
-    h, w, ch = img.shape
-    if ch not in _PNG_COLOR:
-        raise ValueError(f"PNG takes 1 to 4 channels, not {ch}")
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), np.ascontiguousarray(img).reshape(h, -1)], axis=1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR[ch], 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(_PNG_SIG + _png_chunk(b"IHDR", ihdr)
-                + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _png_chunk(b"IEND", b""))
-
-
-def _unfilter(data: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the five PNG row filters (None, Sub, Up, Average, Paeth). Sub
-    and Up are whole-row sums; Average and Paeth step along the row a
-    pixel (bpp bytes) at a time."""
-    rows = data.reshape(h, stride + 1)
-    out = np.zeros((h, stride // bpp, bpp), np.int32)
-    prev = np.zeros((stride // bpp, bpp), np.int32)
-    for y in range(h):
-        kind, line = rows[y, 0], rows[y, 1:].astype(np.int32).reshape(-1, bpp)
-        if kind == 0:
-            cur = line
-        elif kind == 1:
-            cur = np.cumsum(line, axis=0) & 0xFF
-        elif kind == 2:
-            cur = (line + prev) & 0xFF
-        elif kind in (3, 4):
-            cur = np.zeros_like(line)
-            a = c = np.zeros(bpp, np.int32)
-            for x in range(len(line)):
-                b = prev[x]
-                if kind == 3:
-                    pred = (a + b) >> 1
-                else:
-                    p = a + b - c
-                    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-                    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-                cur[x] = (line[x] + pred) & 0xFF
-                a, c = cur[x], b
-        else:
-            raise ValueError(f"unknown PNG row filter {kind}")
-        out[y] = cur
-        prev = cur
-    return out.reshape(h, stride).astype(np.uint8)
-
-
-def read_png(path: str) -> np.ndarray:
-    """Read a non-interlaced 8-bit gray, gray+alpha, RGB or RGBA PNG ->
-    uint8 (H, W) or (H, W, C). Other variants (palette, interlace, other
-    bit depths) raise ValueError."""
-    with open(path, "rb") as f:
-        blob = f.read()
-    if blob[:8] != _PNG_SIG:
-        raise ValueError(f"not a PNG file: {path}")
-    pos, idat, hdr = 8, [], None
-    while pos < len(blob):
-        (n,) = struct.unpack(">I", blob[pos : pos + 4])
-        kind, data = blob[pos + 4 : pos + 8], blob[pos + 8 : pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", data)
-        elif kind == b"IDAT":
-            idat.append(data)
-        elif kind == b"IEND":
-            break
-    w, h, depth, color, _, _, interlace = hdr
-    if depth != 8 or color not in _PNG_CHANNELS or interlace:
-        raise ValueError(f"unsupported PNG variant (depth {depth}, colour type {color}, interlace {interlace})")
-    ch = _PNG_CHANNELS[color]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    img = _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
-    return img[..., 0] if ch == 1 else img
-
-
 def read_image(path: str, grayscale: bool = False) -> np.ndarray:
     """Read an image -> float32 in [0, 1], (H, W[, 3])."""
-    img = None
-    if path.lower().endswith(".png"):
-        try:
-            img = read_png(path)
-        except ValueError:
-            pass  # a variant the reader does not take: imageio below
-    if img is not None:
-        pass
-    elif _is_jpeg(path):
-        from .jpeg import read_jpeg
-
-        img = read_jpeg(path)
+    kind = _codec(path)
+    if kind is not None:
+        img = _read_own(path, kind)
     elif path.endswith(".npy"):
         img = np.load(path)
     elif path.endswith(".exr") and os.path.exists(path + ".npy"):
@@ -195,43 +126,53 @@ def write_image(path: str, img: np.ndarray) -> None:
         return
     if img.dtype in (np.float32, np.float64):
         img = np.clip(img * 255.0, 0, 255).astype(np.uint8)
-    if path.lower().endswith(".png") and img.dtype == np.uint8:
+    kind = _codec(path)
+    if kind == "png":
         write_png(path, img)
         return
-    if _is_jpeg(path):
+    if kind == "jpeg":
         from .jpeg import write_jpeg
 
         write_jpeg(path, img)
+        return
+    if kind == "tiff":
+        from .tiff import write_tiff
+
+        write_tiff(path, img)
+        return
+    if kind == "bmp":
+        from .bmp import write_bmp
+
+        write_bmp(path, img)
         return
     import imageio.v2 as imageio
 
     imageio.imwrite(path, img)
 
 
-def _png_size(path: str):
-    """(width, height) from a PNG's IHDR."""
-    with open(path, "rb") as f:
-        head = f.read(24)
-    if head[:8] != _PNG_SIG or head[12:16] != b"IHDR":
-        raise ValueError(f"not a PNG file: {path}")
-    return struct.unpack(">II", head[16:24])
-
-
 def read_exif(path: str) -> dict:
     """Best-effort EXIF: make, model, focal length (mm), dimensions. A JPEG
-    goes to the port's reader (`image/exif.py`): its dimensions from the
-    SOF, the fields from IFD0 or the Exif sub-IFD, the dimensions alone
-    when its APP1 cannot be parsed; a missing or unbuildable codec raises.
-    A PNG gives its IHDR dimensions, `.npy` and `.exr` the dimensions of
-    their pixels. Other formats go to PIL; what PIL cannot open gives the
-    dimensions read from the pixels."""
-    if _is_jpeg(path):
-        from .exif import read_jpeg_exif
+    or a TIFF goes to the port's reader (`image/exif.py`): the dimensions
+    from the SOF or tags 256 and 257, the fields from IFD0 or the Exif
+    sub-IFD (a JPEG whose APP1 cannot be parsed gives the dimensions
+    alone); a missing or unbuildable codec raises. A PNG or a BMP gives its
+    header's dimensions, `.npy` and `.exr` the dimensions of their pixels.
+    Other formats go to PIL; what PIL cannot open gives the dimensions read
+    from the pixels."""
+    kind = _codec(path)
+    if kind is not None:
+        from . import exif
+        from .bmp import bmp_size
+        from .png import png_size
 
         with open(path, "rb") as f:
-            return read_jpeg_exif(f.read())
-    if path.lower().endswith(".png"):
-        w, h = _png_size(path)
+            if kind == "tiff":  # its IFD may follow the pixels: map the file rather than read it
+                with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
+                    return exif.read_tiff_exif(m)
+            data = f.read()
+        if kind == "jpeg":
+            return exif.read_jpeg_exif(data)
+        w, h = (png_size if kind == "png" else bmp_size)(data)
         return {"width": w, "height": h}
     meta: dict = {}
     if path.endswith((".npy", ".exr")):

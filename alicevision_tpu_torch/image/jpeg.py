@@ -228,8 +228,12 @@ def parse(data: bytes) -> dict:
                     raise ValueError(f"scan names component {cid}, not in the frame")
                 ci = ids.index(cid)
                 sc["comp"].append(ci)
-                sc["td"].append(current.get((0, t >> 4), -1))
-                sc["ta"].append(current.get((1, t & 15), -1))
+                for cls, slot in ((0, t >> 4), (1, t & 15)):
+                    if (cls, slot) not in current and slot < 2:
+                        # no DHT (Motion JPEG's AVI1 frames): libjpeg-turbo's Annex K defaults
+                        current[(cls, slot)] = len(tables)
+                        tables.append(_table_row(*STD_HUFF[2 * slot + cls]))
+                    sc["ta" if cls else "td"].append(current.get((cls, slot), -1))
                 if ci not in latched:
                     tq = frame["comps"][ci]["tq"]
                     if tq not in quant:

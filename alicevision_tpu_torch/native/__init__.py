@@ -2,14 +2,17 @@
 
 Port of the max-flow half of `alicevision_tpu/native/__init__.py`: the
 graph-cut surface mesher's s-t min cut (`maxflow`), in
-`native/maxflow.cpp`; and the port's JPEG codec (`native/jpeg.cpp`, the
+`native/maxflow.cpp`; the port's JPEG codec (`native/jpeg.cpp`, the
 library behind `image/jpeg.py`, which the JAX package reaches through
-imageio and PIL). Each source is compiled with the system C++ compiler
+imageio and PIL); and the byte-stream loops of its TIFF and PNG readers
+(`native/codecs.cpp`: `lzw_decode`, `packbits_decode`, `png_unfilter`,
+whose plain versions live in `image/tiff.py` and `image/png.py`). Each
+source is compiled with the system C++ compiler
 (`g++`, which `nvcc` itself needs) into `alicevision_tpu_torch/_build/`
 (listed in .gitignore) and loaded with ctypes. A library's file name
 carries a hash of its source and flags, so an edited source rebuilds.
 Unlike the reference there is no quiet fallback: without a compiler
-`maxflow` and the JPEG codec raise. `maxflow_plain` is the reference's
+`maxflow`, the JPEG codec and the TIFF and PNG readers raise. `maxflow_plain` is the reference's
 fallback, scipy's integer `maximum_flow`, kept as the plain version the
 tests hold the C++ against. Nothing is built at import time.
 """
@@ -27,14 +30,17 @@ import numpy as np
 
 _SRC = Path(__file__).resolve().parent / "maxflow.cpp"
 JPEG_SRC = _SRC.with_name("jpeg.cpp")
+CODECS_SRC = _SRC.with_name("codecs.cpp")
 BUILD = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _LIB = None
 
 
-_USE = {"maxflow.cpp": "the graph-cut max-flow", "jpeg.cpp": "the JPEG codec"}
+_USE = {"maxflow.cpp": "the graph-cut max-flow", "jpeg.cpp": "the JPEG codec",
+        "codecs.cpp": "the TIFF and PNG readers"}
 _JPEG = None
+_CODECS = None
 
 
 def library_path(src: Path = _SRC) -> Path:
@@ -76,6 +82,58 @@ def jpeg_library() -> ctypes.CDLL:
         lib.jpeg_encode_scan.argtypes = [p, i64, i64, i32, p, p, p, i64]
         _JPEG = lib
     return _JPEG
+
+
+def codecs_library() -> ctypes.CDLL:
+    """The TIFF / PNG loops' library (native/codecs.cpp), built at first use."""
+    global _CODECS
+    if _CODECS is None:
+        lib = ctypes.CDLL(str(build(CODECS_SRC)))
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        for name in ("tiff_lzw_decode", "tiff_packbits_decode"):
+            getattr(lib, name).restype = i64
+            getattr(lib, name).argtypes = [p, i64, p, i64]
+        lib.png_unfilter.restype = ctypes.c_int
+        lib.png_unfilter.argtypes = [p, i64, i64, ctypes.c_int, p]
+        _CODECS = lib
+    return _CODECS
+
+
+def _stream(fn, data: bytes, size: int) -> np.ndarray:
+    src = np.frombuffer(data, np.uint8)
+    dst = np.empty(size, np.uint8)
+    n = fn(src.ctypes.data, len(src), dst.ctypes.data, size)
+    if n == -1:
+        raise ValueError("TIFF old-style (LSB-first) LZW is not taken")
+    if n < 0:
+        raise ValueError("TIFF LZW: a code past the table")
+    return dst[:n]
+
+
+def lzw_decode(data: bytes, size: int) -> np.ndarray:
+    """A TIFF LZW strip or tile, at most `size` bytes of it, as uint8 (the
+    C++ of `image/tiff.py::_lzw_decode_plain`)."""
+    return _stream(codecs_library().tiff_lzw_decode, data, size)
+
+
+def packbits_decode(data: bytes, size: int) -> np.ndarray:
+    """A PackBits strip or tile, at most `size` bytes of it, as uint8 (the
+    C++ of `image/tiff.py::_packbits_plain`)."""
+    return _stream(codecs_library().tiff_packbits_decode, data, size)
+
+
+def png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """h PNG rows of (filter type, `stride` bytes) -> (h, stride) uint8,
+    the C++ of `image/png.py::_unfilter`."""
+    src = np.ascontiguousarray(raw, np.uint8).reshape(-1)
+    if src.size != h * (stride + 1):
+        raise ValueError(f"PNG: {src.size} bytes of image data, expected {h * (stride + 1)}")
+    out = np.empty((h, stride), np.uint8)
+    err = codecs_library().png_unfilter(src.ctypes.data, h, stride, bpp, out.ctypes.data)
+    if err:
+        y = -err - 1
+        raise ValueError(f"unknown PNG row filter {src[y * (stride + 1)]}")
+    return out
 
 
 def _load() -> ctypes.CDLL:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's dense depth-map path with all its branches,
 its SfM front end, its whole main path (images to point cloud, from
-`.npy` images and from camera JPEGs through its own codec), its
+`.npy` images, from camera JPEGs and from 16-bit camera TIFFs through its
+own codecs), keyframe selection from an MJPEG AVI, its
 surface mesher, Meshroom's chain through its CLI (images to textured mesh,
 one process a stage), the HDR panorama chain and global SfM, the hard scene
 (images to poses), camera and rig localization against it, the auxiliary
@@ -15,8 +16,8 @@ toolkit (`nvcc`). It
 
 1. prints the card's name and power limit (nvidia-smi) and turns TF32 off;
 2. builds every CUDA source of the port (`alicevision_tpu_torch/csrc/`) and
-   its host C++ max-flow and JPEG codec (`native/maxflow.cpp`,
-   `native/jpeg.cpp`, with g++);
+   its host C++ max-flow, JPEG codec and TIFF / PNG loops
+   (`native/maxflow.cpp`, `native/jpeg.cpp`, `native/codecs.cpp`, with g++);
 3. holds the SGM kernel's two entries against their plain PyTorch versions
    on the card: `sgm_directional_pass` at the reference's test shapes,
    ragged ones, D past 512 (the carry in shared memory, up to the
@@ -78,6 +79,16 @@ toolkit (`nvcc`). It
    and 32 SGM launches; tests/test_pipeline_photos.py's 40 distorted
    640x480 views rendered on the card, through cameraInit from EXIF,
    DSP-SIFT, voctree pairs, matching and incrementalSfm at its gates;
+7a'. the `codecs` phase (after step 7a): the port's TIFF, BMP, PNG and
+   MJPEG AVI readers (native/codecs.cpp, built with g++) on the committed
+   fixtures against the JAX package's recorded reading (C++ and plain); a
+   24 MP 16-bit RGB TIFF as LZW (the committed strip, replicated) and as
+   deflate, and a 24 MP BMP, timed; the same 8 views as 16-bit camera
+   TIFFs (the focal in IFD0 or the Exif sub-IFD) through run_full_pipeline
+   with no default focal, 32 SGM launches; a 1920x1080 MJPEG AVI of 60
+   frames through keyframeSelection --method smart, equal to the same
+   command on its frames as .npy; its full row in
+   chiprun_out/codecs_phase.json;
 7b. the `cli` phase (after step 7): Meshroom's chain on the same images as
    14 processes of `python -m alicevision_tpu_torch.pipeline.cli`, one a
    stage, at the CLI's defaults, each timed from launch to exit with the
@@ -191,7 +202,7 @@ toolkit (`nvcc`). It
    ring-halo consistency filter bit-exact with `consistency_filter_ring`,
    and the BA and fusion comms tables at one shard (0 collective bytes);
 11. prints a `mesh_surface`, a `hard_scene`, a `dense_full`, a `front`, a
-   `pipeline`, a `photos`, a `ba`, a `cli`, a `panorama`, a `localization`, a
+   `pipeline`, a `photos`, a `codecs`, a `ba`, a `cli`, a `panorama`, a `localization`, a
    `solvers`, a `calibration`, an `extras`, an `aux`, a `scaleout` and a
    `kernels` JSON line, the whole run's seconds and, last,
    `{"ok": true, "device": ...}`.
@@ -202,7 +213,7 @@ It needs a CUDA device; `make_posed_scene`, `run_main_path`, `run_front`,
 `cli_chain`, `check_cli`, `make_panorama_inputs`, `run_panorama_chain`,
 `panorama_report`, `run_hard_scene_engine`, `run_hard_images`,
 `run_localization_phase`, `check_eigh_sites`, `run_calibration_phase`,
-`run_extras_phase`, `run_aux_phase`, `run_photos_phase`,
+`run_extras_phase`, `run_aux_phase`, `run_photos_phase`, `run_codecs_phase`,
 the bench scenes and the BA problem builders
 also run on the CPU at small sizes (the port's tests call some of them
 so).
@@ -216,11 +227,13 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -1602,6 +1615,374 @@ def focal_split(dev, work: str, card_run: str, card_focal) -> dict:
     seconds["card_front_cpu_engine"] = time.perf_counter() - t0
     out["card_front_card_engine"] = [float(x) for x in np.ravel(card_focal)]
     return {"focal_px": out, "seconds": seconds}
+
+
+# --------------------------------------------------------------- codecs
+
+
+def _riff_chunk(fcc: bytes, body: bytes) -> bytes:
+    return fcc + struct.pack("<L", len(body)) + body + b"\0" * (len(body) & 1)
+
+
+AVI_FPS = 30
+
+
+def _riff_list(kind: bytes, body: bytes) -> bytes:
+    return b"LIST" + struct.pack("<L", len(body) + 4) + kind + body
+
+
+def mjpeg_avi(frames: list, w: int, h: int, codec: bytes = b"MJPG") -> bytes:
+    """An AVI of one video stream at AVI_FPS whose frames are the given JPEG
+    bytes: hdrl (avih, strl: strh, strf), movi ('00dc' chunks; an empty one
+    is a dropped frame) and an idx1 index, as a capture tool writes it."""
+    n, big, fps = len(frames), max(len(f) for f in frames), AVI_FPS
+    avih = struct.pack("<14L", 1000000 // fps, big * fps, 0, 0x10, n, 0, 1, big, w, h, 0, 0, 0, 0)
+    strh = b"vids" + codec + struct.pack("<LHHLLLLLLlL4h", 0, 0, 0, 0, 1, fps, 0, n, big, -1, 0, 0, 0, w, h)
+    strf = struct.pack("<LllHH4sLllLL", 40, w, h, 1, 24, codec, w * h * 3, 0, 0, 0, 0)
+    hdrl = _riff_list(b"hdrl", _riff_chunk(b"avih", avih)
+                      + _riff_list(b"strl", _riff_chunk(b"strh", strh) + _riff_chunk(b"strf", strf)))
+    movi, idx, off = [], [], 4
+    for f in frames:
+        c = _riff_chunk(b"00dc", f)
+        idx.append(b"00dc" + struct.pack("<LLL", 0x10 if f else 0, off, len(f)))
+        movi.append(c)
+        off += len(c)
+    body = b"AVI " + hdrl + _riff_list(b"movi", b"".join(movi)) + _riff_chunk(b"idx1", b"".join(idx))
+    return b"RIFF" + struct.pack("<L", len(body)) + body
+
+
+# The codecs phase: the port's own TIFF, BMP, PNG and MJPEG AVI readers
+# (image/{tiff,bmp,png,avi}.py over native/codecs.cpp, built with g++) on
+# a machine with no imageio, PIL or OpenCV. (a) every committed fixture
+# (data/codec_fixtures, scripts/make_codec_fixtures.py) through the C++
+# and the plain routes against the JAX package's reading recorded in
+# fixtures.json (or the port's recorded parting), its EXIF too, and the
+# AVIs' frames against PIL's decode of each chunk and cv2's frame count;
+# (b) a 24 MP (6000x4000) 16-bit RGB TIFF twice: LZW with predictor 2,
+# every StripOffsets entry pointing at the one committed strip (legal
+# TIFF), and deflate with predictor 2 (zlib, built here), each decoded
+# with its seconds, MP/s and host peak, and held to the strip decoded
+# alone (C++ and plain) and to the image it was built from; (c) a 24 MP
+# 24-bit BMP written and read back; (d) the pipeline phase's 8 views as
+# 16-bit RGB TIFFs (deflate with predictor 2 or uncompressed, II or MM),
+# the camera's Make, Model and FocalLength in IFD0 for four and in the
+# Exif sub-IFD for four, through run_full_pipeline with no default focal:
+# cameraInit at 1120.0 px for all 8, the pipeline gates with the photos
+# phase's 2 deg rotation gate, 32 SGM launches; (e) a 1920x1080 MJPEG AVI
+# of 60 frames (a pan over aux_photo, two frames in three blurred,
+# encoded by image/jpeg.encode, wrapped by mjpeg_avi) through
+# `av keyframeSelection --method smart` on the card, its frames/s, and the
+# selected indices equal to the same command on the AVI's frames saved as
+# .npy.
+CODEC_FIXTURES = os.path.join(ROOT, "alicevision_tpu_torch", "data", "codec_fixtures")
+CODEC_24MP_WH = (6000, 4000)
+CODEC_STRIP_ROWS = 4
+CODEC_DEFLATE_ROWS = 16
+CODEC_AVI = dict(wh=(1920, 1080), frames=60, pan_px=4, quality=90, sharp_every=3, blur_sigma=2.0)
+CODEC_VIEW_FOCAL_MM = 31.5  # 1120 px on the Canon EOS 5D Mark III's 36 mm sensor at 1280 px
+
+
+def _digest(a: np.ndarray) -> list:
+    """[dtype, shape, SHA-256] of an array (bools as 0 / 1 bytes)."""
+    import hashlib
+
+    a = np.ascontiguousarray(a != 0 if a.dtype == bool else a)
+    return [a.dtype.name, list(a.shape), hashlib.sha256(a.tobytes()).hexdigest()]
+
+
+def check_codec_fixtures() -> dict:
+    """Every committed fixture against fixtures.json: the C++ and the plain
+    routes, the EXIF, the refusals, and the AVIs' frames."""
+    from alicevision_tpu_torch.image import avi, bmp, png, tiff
+    from alicevision_tpu_torch.image.io import read_exif
+
+    with open(os.path.join(CODEC_FIXTURES, "fixtures.json")) as f:
+        table = json.load(f)
+    routes = {".tif": (tiff.read_tiff, lambda p: tiff.read_tiff(p, plain=True)),
+              ".png": (png.read_png, lambda p: png.read_png(p, plain=True)), ".bmp": (bmp.read_bmp,)}
+    misses, total, t0 = [], 0, time.perf_counter()
+    for name, row in sorted(table.items()):
+        path = os.path.join(CODEC_FIXTURES, name)
+        total += os.path.getsize(path)
+        want = {**row.get("jax", {}), **row.get("port", {})}
+        ext = os.path.splitext(name)[1]
+        if ext == ".avi":
+            try:
+                got = [_digest(f)[2] for f, _ in avi.read_frames(path)]
+            except ValueError as e:
+                got = str(e)
+            if "raises" in want:
+                if not (isinstance(got, str) and want["raises"] in got):
+                    misses.append(f"{name}: expected a ValueError naming {want['raises']}, got {got}")
+            elif got != [r["sha256"] for r in row["frames"]] or len(got) != row["cv2_frames"]:
+                misses.append(f"{name}: frames are not PIL's decode, or not cv2's {row['cv2_frames']}")
+            continue
+        for k, read in enumerate(routes[ext]):
+            try:
+                got = _digest(read(path))
+            except ValueError as e:
+                got = str(e)
+            if "raises" in want:
+                if not (isinstance(got, str) and want["raises"] in got):
+                    misses.append(f"{name}: expected a ValueError naming {want['raises']}, got {got}")
+            elif got != [want["dtype"], want["shape"], want["sha256"]]:
+                misses.append(f"{name}: the {('C++', 'plain')[k]} read {got[:2]} is not the recorded one")
+        if "raises" not in want:
+            meta, exp = read_exif(path), row.get("port", {}).get("exif", row["jax"]["exif"])
+            if meta != exp:
+                misses.append(f"{name}: EXIF {meta}, expected {exp}")
+    return {"fixtures": len(table), "bytes": total, "seconds": time.perf_counter() - t0, "misses": misses}
+
+
+def _timed_read(fn, path: str) -> tuple:
+    t0 = time.perf_counter()
+    img, peak = _host_peak(lambda: fn(path))
+    return img, time.perf_counter() - t0, peak
+
+
+def _predict2(img: np.ndarray) -> np.ndarray:
+    """TIFF predictor 2: horizontal differences of each sample, wrapping."""
+    out = img.copy()
+    out[:, 1:] -= img[:, :-1]
+    return out
+
+
+def tiff_24mp(work: str) -> dict:
+    """The 24 MP 16-bit RGB TIFF, LZW (the committed strip, replicated by
+    offset) and deflate (built here), each decoded and checked."""
+    from alicevision_tpu_torch import native
+    from alicevision_tpu_torch.image import exif, tiff
+
+    W, H = CODEC_24MP_WH
+    with open(os.path.join(CODEC_FIXTURES, "lzw_strip.tif"), "rb") as f:
+        data = f.read()
+    bo, off = tiff.tiff_header(data)
+    tags = exif._ifd(data, off, bo)
+    if (tags[tiff.WIDTH], tags[tiff.HEIGHT]) != (W, CODEC_STRIP_ROWS):
+        raise RuntimeError(f"lzw_strip.tif is {tags[tiff.WIDTH]}x{tags[tiff.HEIGHT]}, expected {W}x{CODEC_STRIP_ROWS}")
+    strip = data[tags[tiff.STRIP_OFFSETS]:tags[tiff.STRIP_OFFSETS] + tags[tiff.STRIP_COUNTS]]
+    n = W * CODEC_STRIP_ROWS * 6
+    t0 = time.perf_counter()
+    alone = native.lzw_decode(strip, n)
+    strip_s = time.perf_counter() - t0
+    plain_equal = bool(np.array_equal(alone, np.frombuffer(tiff._lzw_decode_plain(strip, n), np.uint8)))
+    strip_img = tiff._samples(alone, CODEC_STRIP_ROWS, W, 3, np.uint16, bo, 2)
+    reps = H // CODEC_STRIP_ROWS
+    lzw_path = os.path.join(work, "lzw_24mp.tif")
+    with open(lzw_path, "wb") as f:
+        f.write(tiff.assemble(W, H, 3, 16, [strip] * reps, CODEC_STRIP_ROWS, order="II" if bo == "<" else "MM",
+                              compression=5, predictor=2))
+    img, lzw_s, lzw_peak = _timed_read(tiff.read_tiff, lzw_path)
+    lzw_equal = bool(img.shape == (H, W, 3) and (img.reshape(reps, CODEC_STRIP_ROWS, W, 3) == strip_img).all())
+    del img
+    # deflate: the strip image tiled, each row offset so no two strips are equal
+    src = np.tile(strip_img, (reps, 1, 1)) + (np.arange(H, dtype=np.uint16) * np.uint16(37))[:, None, None]
+    t0 = time.perf_counter()
+    pred = _predict2(src).astype("<u2")
+    strips = [zlib.compress(pred[y:y + CODEC_DEFLATE_ROWS].tobytes(), 1) for y in range(0, H, CODEC_DEFLATE_ROWS)]
+    build_s = time.perf_counter() - t0
+    del pred
+    defl_path = os.path.join(work, "deflate_24mp.tif")
+    with open(defl_path, "wb") as f:
+        f.write(tiff.assemble(W, H, 3, 16, strips, CODEC_DEFLATE_ROWS, compression=8, predictor=2))
+    img, defl_s, defl_peak = _timed_read(tiff.read_tiff, defl_path)
+    defl_equal = bool(np.array_equal(img, src))
+    mp = W * H / 1e6
+    return {"wh": [W, H], "lzw": {"file_bytes": os.path.getsize(lzw_path), "strips": reps, "decode_s": lzw_s,
+                                    "decode_mp_s": mp / lzw_s, "host_peak_gib": lzw_peak / 2**30,
+                                    "equal_to_strip": lzw_equal, "strip_plain_equal": plain_equal,
+                                    "strip_decode_s": strip_s},
+            "deflate": {"file_bytes": os.path.getsize(defl_path), "build_s": build_s, "decode_s": defl_s,
+                        "decode_mp_s": mp / defl_s, "host_peak_gib": defl_peak / 2**30, "equal": defl_equal}}
+
+
+def bmp_24mp(work: str) -> dict:
+    """A 24 MP 24-bit BMP written and read back by the port."""
+    from alicevision_tpu_torch.image import bmp
+
+    W, H = CODEC_24MP_WH
+    y, x = np.mgrid[0:H, 0:W].astype(np.uint16)
+    src = np.stack([(x >> 4) & 255, (y >> 4) & 255, (x ^ y) & 255], -1).astype(np.uint8)
+    del y, x
+    path = os.path.join(work, "24mp.bmp")
+    t0 = time.perf_counter()
+    bmp.write_bmp(path, src)
+    write_s = time.perf_counter() - t0
+    img, read_s, peak = _timed_read(bmp.read_bmp, path)
+    mp = W * H / 1e6
+    return {"wh": [W, H], "file_bytes": os.path.getsize(path), "write_s": write_s, "read_s": read_s,
+            "read_mp_s": mp / read_s, "host_peak_gib": peak / 2**30, "equal": bool(np.array_equal(img, src))}
+
+
+def write_tiff_views(folder: str, imgs: np.ndarray, names: list, focal_mm: float = CODEC_VIEW_FOCAL_MM) -> None:
+    """Grey float views -> 16-bit RGB camera TIFFs (the grey in three
+    channels): even views deflate with predictor 2, odd ones uncompressed;
+    views 0-3 in II with Make, Model and FocalLength in IFD0, views 4-7 in
+    MM with FocalLength in the Exif sub-IFD."""
+    from alicevision_tpu_torch.image import exif, tiff
+
+    os.makedirs(folder, exist_ok=True)
+    for v, name in enumerate(names):
+        u16 = np.round(np.clip(imgs[v], 0, 1) * 65535).astype(np.uint16)
+        rgb = np.repeat(u16[..., None], 3, axis=2)
+        order, where = ("II", "ifd0") if v < 4 else ("MM", "exif")
+        bo = "<" if order == "II" else ">"
+        ifd0, sub = exif.camera_tags(*PHOTO_CAMERA, focal_mm, bo, where)
+        h, w = u16.shape
+        if v % 2 == 0:
+            pred = _predict2(rgb).astype(np.dtype(np.uint16).newbyteorder(bo))
+            strips = [zlib.compress(pred[y:y + 16].tobytes(), 6) for y in range(0, h, 16)]
+            data = tiff.assemble(w, h, 3, 16, strips, 16, order, compression=8, predictor=2,
+                                 ifd0_extra=ifd0, exif_tags=sub)
+        else:
+            data = tiff.tiff_bytes(rgb, order=order, ifd0_extra=ifd0, exif_tags=sub)
+        with open(os.path.join(folder, name), "wb") as f:
+            f.write(data)
+
+
+def tiff_pipeline(dev, work: str, image_folder: str, posed_sfm: str, gt: np.ndarray) -> dict:
+    """The pipeline phase's views as camera TIFFs through run_full_pipeline
+    with no default focal (cameraInit: EXIF -> sensor database)."""
+    truth = sfmdata.load(posed_sfm)
+    names = sorted(f for f in os.listdir(image_folder) if f.endswith(".npy"))
+    imgs = np.stack([np.load(os.path.join(image_folder, n)) for n in names])
+    folder = os.path.join(work, "tiff_images")
+    t0 = time.perf_counter()
+    write_tiff_views(folder, imgs, [n[:-4] + ".tif" for n in names])
+    write_s = time.perf_counter() - t0
+    out = os.path.join(work, "tiff_pipe")
+    seconds, launches = run_pipeline(out, folder, dev, focal_px=None)
+    rep = pipeline_report(out, truth.pose_R[truth.view_pose], truth.pose_c[truth.view_pose], gt)
+    init = sfmdata.load(os.path.join(out, "cameraInit.sfm"))
+    focals = [float(init.scale[i, 0]) for i in np.asarray(init.view_intrinsic)]
+    return {"views": len(names), "write_tiff_s": write_s, "camera_init_focal_px": focals,
+            "stage_seconds": seconds, "sgm_launches": launches,
+            "depth_maps": len(os.listdir(os.path.join(out, "depth"))) // 2, **rep}
+
+
+def avi_keyframes(dev, work: str, cfg=CODEC_AVI) -> dict:
+    """The 1080p MJPEG AVI through `av keyframeSelection --method smart`,
+    and the same command on its frames saved as .npy."""
+    from alicevision_tpu_torch.image import jpeg
+    from alicevision_tpu_torch.image.feeds import video_feed
+    from alicevision_tpu_torch.image.filtering import gaussian_blur
+    from alicevision_tpu_torch.pipeline import cli
+
+    W, H = cfg["wh"]
+    n = cfg["frames"]
+    t0 = time.perf_counter()
+    pano = aux_photo((W + cfg["pan_px"] * n, H))
+    frames = []
+    for k in range(n):
+        img = torch.from_numpy(np.ascontiguousarray(pano[:, cfg["pan_px"] * k:cfg["pan_px"] * k + W]))
+        if k % cfg["sharp_every"] != 1:
+            img = gaussian_blur(img.to(dev).permute(2, 0, 1), cfg["blur_sigma"]).permute(1, 2, 0).cpu()
+        u8 = np.clip(img.numpy() * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        frames.append(jpeg.encode(u8, cfg["quality"]))
+    path = os.path.join(work, "clip.avi")
+    with open(path, "wb") as f:
+        f.write(mjpeg_avi(frames, W, H))
+    make_s = time.perf_counter() - t0
+    rows = {}
+    for tag, src in (("avi", path), ("npy", os.path.join(work, "clip_npy"))):
+        if tag == "npy":
+            t0 = time.perf_counter()
+            os.makedirs(src, exist_ok=True)
+            for img, i in video_feed(path, grayscale=True):
+                np.save(os.path.join(src, f"f{i:03d}.npy"), img)
+            rows["npy_write_s"] = time.perf_counter() - t0
+        out = os.path.join(work, f"keyframes_{tag}.txt")
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(["keyframeSelection", "--inputFolder", src, "--output", out, "--method", "smart",
+                       "--device", str(torch.device(dev).type)])
+        sec = time.perf_counter() - t0
+        with open(out) as f:
+            picked = [int(re.sub(r"\D", "", name)) for name in f.read().split()]
+        rows[tag] = {"rc": rc, "seconds": sec, "frames_per_s": n / sec, "selected": picked}
+    return {"wh": [W, H], "frames": n, "avi_bytes": os.path.getsize(path), "make_s": make_s, **rows,
+            "equal": rows["avi"]["selected"] == rows["npy"]["selected"] and rows["avi"]["rc"] == 0}
+
+
+def codecs_misses(row: dict) -> list:
+    """The gates of the codecs phase that `row` misses."""
+    bad = list(row["fixtures"]["misses"])
+    t = row["tiff_24mp"]
+    if not (t["lzw"]["equal_to_strip"] and t["lzw"]["strip_plain_equal"]):
+        bad.append("24 MP LZW TIFF: not its strip, or the strip's C++ and plain decodes differ")
+    if not t["deflate"]["equal"]:
+        bad.append("24 MP deflate TIFF: not the image it was built from")
+    if not row["bmp_24mp"]["equal"]:
+        bad.append("24 MP BMP: read back unequal")
+    pp = row["pipeline"]
+    if any(f != 1120.0 for f in pp["camera_init_focal_px"]) or len(pp["camera_init_focal_px"]) != pp["views"]:
+        bad.append(f"cameraInit focals {pp['camera_init_focal_px']}, expected 1120.0 for all {pp['views']}")
+    want = {"sgm_directional_pass": 0, "sgm_axis_sweeps": LAUNCHES_PER_MAP * pp["views"]}
+    if pp["sgm_launches"] != want or pp["depth_maps"] != pp["n_posed"]:
+        bad.append(f"{pp['depth_maps']} depth maps, SGM launches {pp['sgm_launches']}, expected {want}")
+    if pp["n_posed"] < PIPE_MIN_POSED:
+        bad.append(f"{pp['n_posed']} views posed, expected at least {PIPE_MIN_POSED}")
+    if pp["ate_frac_of_radius"] >= PIPE_ATE_FRAC:
+        bad.append(f"camera-centre ATE {pp['ate_frac_of_radius']:.4f} of the radius, expected < {PIPE_ATE_FRAC}")
+    if max(pp["rotation_err_deg"]) >= PHOTO_ROT_DEG:
+        bad.append(f"rotation errors {pp['rotation_err_deg']} deg, expected < {PHOTO_ROT_DEG}")
+    if pp["landmarks"] < PIPE_MIN_LANDMARKS:
+        bad.append(f"{pp['landmarks']} landmarks, expected at least {PIPE_MIN_LANDMARKS}")
+    missed = [v for v, m, f in zip(pp["posed"], pp["depth_median_rel_err"], pp["depth_valid_frac"])
+              if not (m < PIPE_DEPTH_MED and f > PIPE_DEPTH_VALID)]
+    if missed:
+        bad.append(f"views {missed} miss the depth floors (<{PIPE_DEPTH_MED}, >{PIPE_DEPTH_VALID})")
+    if not (pp["cloud_points"] or 0) > PIPE_MIN_CLOUD:
+        bad.append(f"cloud.ply holds {pp['cloud_points']} points, expected more than {PIPE_MIN_CLOUD}")
+    kf = row["keyframes"]
+    if not kf["equal"] or not kf["avi"]["selected"]:
+        bad.append(f"keyframeSelection from the AVI picked {kf['avi']['selected']} (rc {kf['avi']['rc']}), "
+                   f"from its .npy frames {kf['npy']['selected']}")
+    return bad
+
+
+def codecs_summary(row: dict) -> dict:
+    """The codecs row's headline numbers (the full row goes to a file)."""
+    t, b, kf, pp = row["tiff_24mp"], row["bmp_24mp"], row["keyframes"], row["pipeline"]
+    return {"fixtures": row["fixtures"]["fixtures"], "fixture_misses": len(row["fixtures"]["misses"]),
+            "lzw_24mp": {k: t["lzw"][k] for k in ("decode_s", "decode_mp_s", "host_peak_gib", "equal_to_strip")},
+            "deflate_24mp": {k: t["deflate"][k] for k in ("decode_s", "decode_mp_s", "host_peak_gib", "equal")},
+            "bmp_24mp": {k: b[k] for k in ("write_s", "read_s", "read_mp_s", "equal")},
+            "keyframes": {"avi_s": kf["avi"]["seconds"], "frames_per_s": kf["avi"]["frames_per_s"],
+                          "npy_s": kf["npy"]["seconds"], "selected": kf["avi"]["selected"], "equal": kf["equal"]},
+            "pipeline": {"focal_px": sorted(set(pp["camera_init_focal_px"])), "n_posed": pp["n_posed"],
+                         "ate_frac_of_radius": pp["ate_frac_of_radius"],
+                         "max_rotation_err_deg": max(pp["rotation_err_deg"]), "landmarks": pp["landmarks"],
+                         "sgm_launches": pp["sgm_launches"], "seconds": sum(pp["stage_seconds"].values())},
+            "seconds": row["seconds"], "misses": row["misses"]}
+
+
+def run_codecs_phase(dev, work: str, image_folder: str, posed_sfm: str, gt: np.ndarray, smi: str = "",
+                     avi_cfg=CODEC_AVI) -> tuple:
+    """The codecs phase (see its constants): (the `codecs` row, the SGM
+    launches of its pipeline run)."""
+    t_phase = time.perf_counter()
+    row = {"device": smi, "fixtures": check_codec_fixtures(), "tiff_24mp": tiff_24mp(work),
+           "bmp_24mp": bmp_24mp(work)}
+    row["pipeline"] = tiff_pipeline(dev, work, image_folder, posed_sfm, gt)
+    launches = dict(row["pipeline"]["sgm_launches"])
+    row["keyframes"] = avi_keyframes(dev, work, avi_cfg)
+    row["seconds"] = time.perf_counter() - t_phase
+    row["misses"] = codecs_misses(row)
+    return row, launches
+
+
+def check_codecs(dev, work: str, image_folder: str, posed_sfm: str, gt: np.ndarray, smi: str) -> tuple:
+    row, launches = run_codecs_phase(dev, work, image_folder, posed_sfm, gt, smi)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "codecs_phase.json"), "w") as f:
+        json.dump(row, f, indent=1)
+    summary = codecs_summary(row)
+    print("codecs " + json.dumps(summary), flush=True)
+    if row["misses"]:
+        raise RuntimeError("codecs: " + "; ".join(row["misses"]))
+    return summary, launches
 
 
 # ------------------------------------------------------------------- BA
@@ -5624,6 +6005,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     print(f"build native/jpeg.cpp (g++, the JPEG codec): {native.build(native.JPEG_SRC).name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    print(f"build native/codecs.cpp (g++, the TIFF and PNG loops): {native.build(native.CODECS_SRC).name} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernel against its plain version, both entries
     rows = check_sgm_kernel(dev)
@@ -5708,6 +6092,10 @@ def main(argv=None) -> int:
         photos_row, photos_launches = check_photos(dev, work, os.path.join(work, "images"), sfm, gt,
                                                    pipe["stage_seconds_warm"], smi)
 
+        # 7a'. TIFF, BMP, PNG and MJPEG AVI through the port's own readers,
+        # the pipeline from camera TIFFs, keyframeSelection from an AVI
+        codecs_row, codecs_launches = check_codecs(dev, work, os.path.join(work, "images"), sfm, gt, smi)
+
         # 7b. Meshroom's chain through the CLI, one process a stage
         cli_row, cli_launches = check_cli(dev, work, os.path.join(work, "images"), sfm, gt, smi)
 
@@ -5752,6 +6140,7 @@ def main(argv=None) -> int:
     print(json.dumps({"front": front}), flush=True)
     print(json.dumps({"pipeline": pipe}), flush=True)
     print(json.dumps({"photos": photos_row}), flush=True)
+    print(json.dumps({"codecs": codecs_row}), flush=True)
     print(json.dumps({"ba": ba_rows}), flush=True)
     print(json.dumps({"cli": cli_row}), flush=True)
     print(json.dumps({"panorama": pano_row}), flush=True)
@@ -5761,7 +6150,8 @@ def main(argv=None) -> int:
     print(json.dumps({"extras": extras_row}), flush=True)
     print(json.dumps({"aux": aux_row}), flush=True)
     print(json.dumps({"scaleout": scale_row}), flush=True)
-    launches = {k: launches[k] + pipe_launches[k] + photos_launches[k] + full_launches[k] + cli_launches[k]
+    launches = {k: launches[k] + pipe_launches[k] + photos_launches[k] + codecs_launches[k] + full_launches[k]
+                + cli_launches[k]
                 + pano_launches[k]
                 + loc_launches[k] + cal_launches[k] + extras_launches[k] + aux_launches[k] + scale_launches[k]
                 for k in launches}

@@ -242,9 +242,7 @@ def test_keyframe_selection_matches(tmp_path, method):
         assert (tmp_path / "port.txt").read_text().split() == ["f000.png", "f004.png", "f008.png"]
 
 
-def test_keyframe_video_needs_opencv(tmp_path, monkeypatch):
-    """A video input goes through `video_feed`, which raises without
-    OpenCV, as the JAX package's does."""
+def _no_cv2(monkeypatch):
     import builtins
 
     real_import = builtins.__import__
@@ -255,9 +253,30 @@ def test_keyframe_video_needs_opencv(tmp_path, monkeypatch):
         return real_import(name, *a, **kw)
 
     monkeypatch.setattr(builtins, "__import__", no_cv2)
+
+
+def test_keyframe_video_needs_opencv(tmp_path, monkeypatch):
+    """A video the port's feed does not take (an MP4 container, which the
+    JAX package reads through OpenCV) raises a ValueError naming it, and
+    keyframeSelection fails on it; the port never reaches for cv2."""
+    _no_cv2(monkeypatch)
     from alicevision_tpu_torch.image.feeds import video_feed
 
-    with pytest.raises(RuntimeError, match="OpenCV"):
+    (tmp_path / "clip.mp4").write_bytes(b"\0\0\0\x18ftypisom" + bytes(32))
+    with pytest.raises(ValueError, match="container MP4"):
         next(video_feed(str(tmp_path / "clip.mp4")))
     assert tcli.main(["keyframeSelection", "--inputFolder", str(tmp_path / "clip.mp4"), "--output",
                       str(tmp_path / "s.txt"), *CPU]) == 1
+
+
+def test_keyframe_video_reads_mjpeg_without_opencv(tmp_path, monkeypatch):
+    """An MJPEG AVI goes through the port's own reader with cv2 blocked."""
+    from alicevision_tpu_torch.image import jpeg
+
+    _no_cv2(monkeypatch)
+    base = (np.random.default_rng(0).random((24, 32)) * 255).astype(np.uint8)
+    frames = [jpeg.encode(np.roll(base, 2 * i, axis=1), 90) for i in range(7)]
+    (tmp_path / "clip.avi").write_bytes(chip_smoke.mjpeg_avi(frames, 32, 24))
+    assert tcli.main(["keyframeSelection", "--inputFolder", str(tmp_path / "clip.avi"), "--output",
+                      str(tmp_path / "s.txt"), "--method", "regular", "--step", "3", *CPU]) == 0
+    assert (tmp_path / "s.txt").read_text().split() == ["frame_000000", "frame_000003", "frame_000006"]

@@ -39,7 +39,8 @@ wanted = {"geometry.rotations", "geometry.pose", "camera.models", "utils.synthet
           "keyframe", "keyframe.selector", "utils.onnx_rt", "misc.segmentation", "misc.masking",
           "misc.color_harmonization", "mvs.lidar", "image.e57", "utils.render", "system", "parallel",
           "parallel.mesh", "parallel.distributed", "parallel.ba_sharded", "parallel.comms_report",
-          "parallel.launch", "image.jpeg", "image.exif"}
+          "parallel.launch", "image.jpeg", "image.exif", "image.tiff", "image.png", "image.bmp",
+          "image.avi"}
 missing = wanted - {n.split(".", 1)[1] for n in names}
 assert not missing, missing
 for name in names:
